@@ -1,0 +1,39 @@
+"""neuralpde_tpu_torch — the PyTorch/CUDA port of `neuralpde_tpu`.
+
+The dense PINN trainer (symbolic front end, lowering, Grid/Stochastic
+training, Taylor-mode derivatives, Adam training) for one NVIDIA H100, with
+hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
+those of `neuralpde_tpu`.  This package imports no JAX.
+"""
+
+from .config import default_float, enable_x64, matmul_precision
+from .logging_utils import LogOptions, logscalar, logvector
+from .symbolic.expr import (
+    DepVar, Deriv, Differential, Eq, Expr, Integral, IntegralExpr, Num, Param,
+    Sym, abs_, acos, asin, atan, cos, cosh, depvars, erf, exp, expand_derivatives,
+    log, parameters, pi, register_primitive, sigmoid, sin, sinh, sqrt,
+    substitute, symbols, symbolic_diff, tan, tanh,
+)
+from .symbolic.system import Domain, Interval, PDESystem, in_domain, infimum, supremum
+from .nn.core import Chain, Dense, Module, glorot_normal, glorot_uniform, mlp
+from .ops.derivatives import (
+    DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
+)
+from .strategies import (
+    GridTraining, StochasticTraining, TrainingStrategy, generate_training_sets,
+    get_bounds,
+)
+from .adaptive import AbstractAdaptiveLoss, NonAdaptiveLoss
+from .compile.discretize import (
+    PhysicsInformedNN, Phi, PINNLossFunctions, PINNRepresentation,
+    TrainingProblem, discretize, symbolic_discretize,
+)
+from .compile.lower import (
+    build_loss_function, build_residual_function, depvar_params, get_argument,
+    get_variables,
+)
+from .train import SolveResult, adam, make_step, solve
+from .utils.pytree import parameters_to_vector, vector_to_parameters
+from .utils.convert import params_from_jax, params_to_numpy
+
+__version__ = "0.1.0"

@@ -1,0 +1,42 @@
+"""Parameter exchange with the JAX package, through numpy arrays.
+
+The JAX package keeps parameters as nested dicts
+(``{"depvar": {"layer_0": {"weight": w, "bias": b}}}``); the port keeps one
+flat dict keyed by the same path joined with dots
+(``{"depvar.layer_0.weight": w, ...}``), which is also how `nn.Module`
+names its parameters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree, *, dtype=None, device=None) -> dict:
+    """Nested dict of arrays -> flat dict of tensors with dotted keys."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+            return
+        out[prefix[:-1]] = torch.as_tensor(np.array(node), dtype=dtype,
+                                           device=device)
+
+    walk(tree, "")
+    return out
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Flat dict of tensors with dotted keys -> nested dict of numpy arrays
+    (the inverse of `params_from_jax`)."""
+    out: dict = {}
+    for key, value in params.items():
+        *path, leaf = key.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy()
+    return out
