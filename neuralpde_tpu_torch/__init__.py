@@ -1,7 +1,8 @@
 """neuralpde_tpu_torch — the PyTorch/CUDA port of `neuralpde_tpu`.
 
 The dense PINN trainer (symbolic front end, lowering, Grid/Stochastic
-training, Taylor-mode derivatives, Adam training) for one NVIDIA H100, with
+training, Taylor-mode derivatives, Adam training), separable (SPINN)
+training and matrix-free Gauss-Newton for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
@@ -15,7 +16,11 @@ from .symbolic.expr import (
     substitute, symbols, symbolic_diff, tan, tanh,
 )
 from .symbolic.system import Domain, Interval, PDESystem, in_domain, infimum, supremum
-from .nn.core import Chain, Dense, Module, glorot_normal, glorot_uniform, mlp
+from .nn.core import (
+    Chain, Dense, FourierFeatures, Module, PeriodicEmbedding, SkipConnection,
+    Transformed, glorot_normal, glorot_uniform, mlp,
+)
+from .nn.separable import SeparableNet, separable_mlp
 from .ops.derivatives import (
     DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
 )
@@ -32,7 +37,12 @@ from .compile.lower import (
     build_loss_function, build_residual_function, depvar_params, get_argument,
     get_variables,
 )
+from .compile.separable import SeparableTraining, build_separable_residual
 from .train import SolveResult, adam, make_step, solve
+from .gauss_newton import (
+    build_residual_vector, lm_least_squares, solve_gauss_newton,
+    trust_region_least_squares,
+)
 from .utils.pytree import parameters_to_vector, vector_to_parameters
 from .utils.convert import params_from_jax, params_to_numpy
 

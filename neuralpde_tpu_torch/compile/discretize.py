@@ -14,7 +14,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, jvp
+from torch.utils.checkpoint import checkpoint
 
 from ..adaptive import AbstractAdaptiveLoss, NonAdaptiveLoss
 from ..config import default_float, matmul_precision
@@ -81,7 +82,10 @@ class PhysicsInformedNN:
     * loss_accum_dtype: a wider dtype for the mean-square reductions
     * matmul_precision: "highest"/None (true float32 matmuls) or
       "high"/"default" (TF32 tensor cores on the card)
-    * remat, gradient_enhanced: not ported yet; setting them raises
+    * remat: recompute each residual in the backward pass
+      (`torch.utils.checkpoint`) instead of keeping its activations
+    * gradient_enhanced: gPINN weight w; each PDE residual gains the rows
+      √w·∂f/∂x_i, one per coordinate of the equation
     """
 
     def __init__(self, chain, strategy: TrainingStrategy | None, *,
@@ -92,10 +96,6 @@ class PhysicsInformedNN:
                  seed: int = 0, dtype=None, device=None, remat: bool = False,
                  loss_accum_dtype=None, gradient_enhanced: float | None = None,
                  matmul_precision: str | None = None):
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
-        if gradient_enhanced:
-            raise NotImplementedError("gradient_enhanced is not ported yet")
         self.multioutput = isinstance(chain, (list, tuple))
         self.chain = list(chain) if self.multioutput else chain
         self.strategy = strategy
@@ -113,6 +113,8 @@ class PhysicsInformedNN:
         self.dtype = dtype
         self.device = torch.device(device if device is not None else "cpu")
         self.loss_accum_dtype = loss_accum_dtype
+        self.remat = remat
+        self.gradient_enhanced = gradient_enhanced
         self.matmul_precision = matmul_precision
         chains = self.chain if self.multioutput else [self.chain]
         self.phi = ([Phi(c, matmul_precision) for c in chains]
@@ -164,6 +166,8 @@ class PINNRepresentation:
     dtype: Any = None
     device: Any = None
     loss_accum_dtype: Any = None
+    remat: bool = False
+    gradient_enhanced: float | None = None
     log_options: LogOptions = field(default_factory=LogOptions)
     symbolic_pde_loss_functions: list = field(default_factory=list)
     symbolic_bc_loss_functions: list = field(default_factory=list)
@@ -282,6 +286,8 @@ def symbolic_discretize(pde_system: PDESystem,
         bc_indvars=[get_variables(bc, depvars) for bc in bcs],
         pde_args=pde_args, bc_args=bc_args, dtype=dtype, device=device,
         loss_accum_dtype=discretization.loss_accum_dtype,
+        remat=discretization.remat,
+        gradient_enhanced=discretization.gradient_enhanced,
         log_options=discretization.log_options,
         matmul_precision=discretization.matmul_precision,
     )
@@ -298,9 +304,43 @@ def symbolic_discretize(pde_system: PDESystem,
                     for eq, lay in zip(eqs, pde_layouts)]
     datafree_bc = [build_residual_function(bc, lay, ctx, default_p)
                    for bc, lay in zip(bcs, bc_layouts)]
+    if discretization.gradient_enhanced:
+        datafree_pde = [_gradient_enhanced(f, args,
+                                           discretization.gradient_enhanced)
+                        for f, args in zip(datafree_pde, pde_args)]
+    if discretization.remat:
+        datafree_pde = [_rematerialized(f) for f in datafree_pde]
+        datafree_bc = [_rematerialized(f) for f in datafree_bc]
     pinnrep.loss_functions = _assemble_loss_functions(pinnrep, datafree_pde,
                                                       datafree_bc)
     return pinnrep
+
+
+def _gradient_enhanced(f, args, weight):
+    """gPINN (Yu, Lu, Meng & Karniadakis 2022): the residual grows the rows
+    √w·∂f/∂x_i, one exact `torch.func.jvp` in the coordinates per Sym
+    argument, so a mean-square reduction sees (L_res + w·ΣL_grad)/(1+n_axes).
+    BCs are left untouched."""
+    sqrt_w = float(np.sqrt(weight))
+    axes = [i for i, a in enumerate(args) if isinstance(a, Sym)]
+
+    def g(cord, theta):
+        rows = [torch.atleast_2d(f(cord, theta))]
+        for i in axes:
+            tangent = torch.zeros_like(cord)
+            tangent[i] = 1
+            rows.append(sqrt_w * torch.atleast_2d(
+                jvp(lambda c: f(c, theta), (cord,), (tangent,))[1]))
+        return torch.cat(rows, dim=0)
+
+    return g
+
+
+def _rematerialized(f):
+    def g(cord, theta):
+        return checkpoint(f, cord, theta, use_reentrant=False)
+
+    return g
 
 
 def _wrap_precision(fn, mp):

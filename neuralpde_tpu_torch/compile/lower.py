@@ -58,6 +58,18 @@ class LoweringContext:
     def module_for(self, name):
         return self.modules[self.depvars.index(name)]
 
+    @classmethod
+    def from_pinnrep(cls, pinnrep) -> "LoweringContext":
+        """Rebuild the compile context of an existing `PINNRepresentation`
+        (the separable and Gauss-Newton re-lowering entry point)."""
+        phis = pinnrep.phi if pinnrep.multioutput else [pinnrep.phi]
+        return cls(
+            depvars=pinnrep.depvars, indvars=pinnrep.indvars,
+            dict_depvar_input=pinnrep.dict_depvar_input,
+            modules=[p.module for p in phis], multioutput=pinnrep.multioutput,
+            derivative=pinnrep.derivative, eq_params=pinnrep.eq_params,
+            param_estim=pinnrep.param_estim)
+
 
 # ---------------------------------------------------------------------------
 # Equation analysis (get_argument / get_variables analogs)

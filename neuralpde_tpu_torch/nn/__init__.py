@@ -1,4 +1,6 @@
 from .core import (  # noqa: F401
-    Chain, Dense, Module, TrialFunction, gelu, glorot_normal, glorot_uniform,
-    identity, mlp, relu, sigmoid, sin, softplus, swish, tanh, zeros_init,
+    Chain, Dense, FourierFeatures, Module, PeriodicEmbedding, SkipConnection,
+    Transformed, TrialFunction, gelu, glorot_normal, glorot_uniform, identity,
+    mlp, relu, sigmoid, sin, softplus, swish, tanh, zeros_init,
 )
+from .separable import SeparableNet, separable_mlp  # noqa: F401

@@ -14,6 +14,14 @@ of the input along a path, and the result holds the output's.  A Dense layer
 is linear (its bias goes on the primal only); each activation has a rule in
 `TAYLOR_RULES`.  tanh at order 2 runs the `tanh_jet2` kernel; every other
 (activation, order) pair runs the plain recurrences below, on any device.
+The embeddings (`FourierFeatures`, `PeriodicEmbedding`) are linear maps into
+sin/cos, and the wrappers around user functions (`Transformed`,
+`SkipConnection`) push the inner series through the user's function by
+truncated-Taylor arithmetic (`_Series`).
+
+`Transformed` and `SkipConnection` add no level to parameter names, as
+their JAX counterparts return ``base.init(key)``: they share the wrapped
+module's registries (see `_Wrapper`).
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from typing import Callable, Sequence
 
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.func import functional_call, jvp
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..config import default_float
 from ..kernels.tanh_jet import tanh_jet2
@@ -128,13 +137,19 @@ def _sigmoid_series(z, zs):
     return a[0], _denormalise(a)
 
 
-def _sin_series(z, zs):
+def _sin_cos_series(z, zs):
+    """(sin z, its series, cos z, its series) from one recurrence."""
     zt = _normalise(zs)
     s, c = [torch.sin(z)], [torch.cos(z)]                  # s' = c z', c' = -s z'
     for k in range(1, len(zs) + 1):
         s.append(_ode_step(zt, c, k))
         c.append(-_ode_step(zt, s, k))
-    return s[0], _denormalise(s)
+    return s[0], _denormalise(s), c[0], _denormalise(c)
+
+
+def _sin_series(z, zs):
+    s, s_series, _, _ = _sin_cos_series(z, zs)
+    return s, s_series
 
 
 def _identity_series(z, zs):
@@ -266,15 +281,336 @@ class Chain(Module):
 
 
 def mlp(sizes: Sequence[int], activation: Callable = tanh,
-        out_activation: Callable | None = None, *, dtype=None,
-        device=None) -> Chain:
-    """Convenience constructor: mlp([2, 16, 16, 1]) -> 3-layer Chain."""
+        out_activation: Callable | None = None, *,
+        fourier_features: int | None = None, fourier_sigma: float = 1.0,
+        dtype=None, device=None) -> Chain:
+    """Convenience constructor: mlp([2, 16, 16, 1]) -> 3-layer Chain.
+
+    ``fourier_features=m`` prepends a fixed random Fourier embedding with m
+    frequencies (bandwidth ``fourier_sigma``); the first Dense layer then
+    takes the 2m embedded channels instead of the raw coordinates.
+    """
     layers = []
-    for i in range(len(sizes) - 1):
+    start = 0
+    if fourier_features:
+        layers.append(FourierFeatures(sizes[0], fourier_features,
+                                      fourier_sigma, dtype=dtype,
+                                      device=device))
+        layers.append(Dense(2 * fourier_features, sizes[1],
+                            activation if len(sizes) > 2 else out_activation,
+                            dtype=dtype, device=device))
+        start = 1
+    for i in range(start, len(sizes) - 1):
         act = activation if i < len(sizes) - 2 else out_activation
         layers.append(Dense(sizes[i], sizes[i + 1], act, dtype=dtype,
                             device=device))
     return Chain(*layers)
+
+
+def _lift_series(fn: Callable, primals, series_list):
+    """Taylor series (derivative convention) of ``fn`` applied to series
+    inputs: the derivatives at t = 0 of ``g(t) = fn(*(p + sum_k s_k t^k /
+    k!))``, by K nested `torch.func.jvp` in the scalar t.  Exact to order
+    K, since those derivatives depend only on the first K coefficients."""
+    order = len(series_list[0])
+    like = primals[0]
+    one = torch.ones((), dtype=like.dtype, device=like.device)
+    scaled = [[s_k / math.factorial(k) for k, s_k in enumerate(series, 1)]
+              for series in series_list]
+
+    def path(t):
+        def horner(p, cs):
+            acc = cs[-1]
+            for c in reversed(cs[:-1]):
+                acc = c + t * acc
+            return p + t * acc
+
+        return fn(*(horner(p, cs) for p, cs in zip(primals, scaled)))
+
+    def derivatives(k):
+        """t -> (g(t), g'(t), ..., g^(k)(t))."""
+        if k == 0:
+            return lambda t: (path(t),)
+        inner = derivatives(k - 1)
+
+        def outer(t):
+            values, tangents = jvp(inner, (t,), (one,))
+            return (*values, tangents[-1])
+
+        return outer
+
+    out = derivatives(order)(torch.zeros_like(one))
+    return out[0], out[1:]
+
+
+class _Series:
+    """A truncated Taylor series under the arithmetic of user functions:
+    how `Transformed` and `SkipConnection` push series through their
+    lambdas.  Coefficients are normalised (c_k = z_k / k!; None is a zero
+    coefficient); +, -, *, /, integer powers and indexing combine them in
+    plain tensor ops, and any other torch function is lifted by nested jvp
+    (`_lift_series`).  A wrapped jet stays one level of forward mode under
+    an outer `torch.func` transform, where nested jvps would not."""
+
+    __slots__ = ("c",)
+
+    def __init__(self, coeffs):
+        self.c = list(coeffs)
+
+    @classmethod
+    def of(cls, primal, series):
+        return cls([primal] + [s / math.factorial(k)
+                               for k, s in enumerate(series, 1)])
+
+    def result(self):
+        """(primal, derivative-convention series)."""
+        zero = torch.zeros_like(self.c[0])
+        return self.c[0], tuple(zero if c is None else c * math.factorial(k)
+                                for k, c in enumerate(self.c[1:], 1))
+
+    def _other(self, o):
+        return o.c if isinstance(o, _Series) else [o] + [None] * (
+            len(self.c) - 1)
+
+    def __add__(self, o):
+        return _Series(a if b is None else b if a is None else a + b
+                       for a, b in zip(self.c, self._other(o)))
+
+    __radd__ = __add__
+
+    def __neg__(self):
+        return _Series(None if a is None else -a for a in self.c)
+
+    def __sub__(self, o):
+        return self + (-o if isinstance(o, _Series) else -o)
+
+    def __rsub__(self, o):
+        return -self + o
+
+    def __mul__(self, o):
+        a, b = self.c, self._other(o)
+        out = []
+        for k in range(len(a)):
+            terms = [a[i] * b[k - i] for i in range(k + 1)
+                     if a[i] is not None and b[k - i] is not None]
+            out.append(sum(terms[1:], terms[0]) if terms else None)
+        return _Series(out)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        if not isinstance(o, _Series):
+            return _Series(None if a is None else a / o for a in self.c)
+        b, q = o.c, []
+        for k, a_k in enumerate(self.c):       # a = q b, solved for q_k
+            acc = a_k if a_k is not None else torch.zeros_like(self.c[0])
+            for j in range(1, k + 1):
+                if b[j] is not None and q[k - j] is not None:
+                    acc = acc - b[j] * q[k - j]
+            q.append(acc / b[0])
+        return _Series(q)
+
+    def __rtruediv__(self, o):
+        return _Series([o] + [None] * (len(self.c) - 1)) / self
+
+    def __pow__(self, n):
+        if isinstance(n, int) and n >= 0:
+            out = _Series([torch.ones_like(self.c[0])]
+                          + [None] * (len(self.c) - 1))
+            for _ in range(n):
+                out = out * self
+            return out
+        return torch.pow(self, n)
+
+    def __getitem__(self, index):
+        return _Series(None if a is None else a[index] for a in self.c)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        leaves, spec = tree_flatten((args, kwargs or {}))
+        at = [i for i, leaf in enumerate(leaves) if isinstance(leaf, _Series)]
+        primals = [leaves[i].c[0] for i in at]
+        series_list = [list(leaves[i].result()[1]) for i in at]
+
+        def fn(*values):
+            filled = list(leaves)
+            for i, v in zip(at, values):
+                filled[i] = v
+            a, k = tree_unflatten(filled, spec)
+            return func(*a, **k)
+
+        return _Series.of(*_lift_series(fn, primals, series_list))
+
+
+def _through(fn, *inputs):
+    """Taylor series of ``fn`` at series ``inputs`` (primal, series)."""
+    out = fn(*(_Series.of(p, s) for p, s in inputs))
+    if isinstance(out, _Series):
+        return out.result()
+    return out, tuple(torch.zeros_like(out) for _ in inputs[0][1])
+
+
+class _Wrapper(Module):
+    """A module around ``inner`` that shares its parameter, buffer and
+    submodule registries instead of holding it as a child: parameter names
+    are ``inner``'s own (no ``inner.`` level, as the JAX package's
+    ``init`` returns ``inner.init(key)``), and `functional_call` on the
+    wrapper swaps the tensors ``inner`` reads."""
+
+    def __init__(self, inner: Module):
+        super().__init__()
+        object.__setattr__(self, "_inner", inner)
+        object.__setattr__(self, "_parameters", inner._parameters)
+        object.__setattr__(self, "_buffers", inner._buffers)
+        object.__setattr__(self, "_modules", inner._modules)
+
+    @property
+    def in_dim(self):
+        return self._inner.in_dim
+
+    @property
+    def out_dim(self):
+        return self._inner.out_dim
+
+    @property
+    def has_taylor_rule(self):
+        return getattr(self._inner, "has_taylor_rule", False)
+
+    def reset_parameters(self, generator=None):
+        self._inner.reset_parameters(generator)
+
+
+class SkipConnection(_Wrapper):
+    """`y = merge(layer(x), x)` (the DGM block chaining)."""
+
+    def __init__(self, layer: Module, merge: Callable):
+        super().__init__(layer)
+        self.merge = merge
+
+    @property
+    def layer(self):
+        return self._inner
+
+    def forward(self, x, series=None):
+        if series is None:
+            return self.merge(self._inner(x), x)
+        out, out_series = self._inner(x, series)
+        return _through(self.merge, (out, out_series), (x, series))
+
+
+class Transformed(_Wrapper):
+    """Hard-constraint trial function: ``u(x) = transform(x, base(x))``,
+    e.g. ``lambda c, o: c * (1 - c) * o`` for a zero boundary on [0, 1].
+    Derivatives are exact under every engine; under Taylor mode the base
+    net keeps its own rules (and the `tanh_jet2` kernel)."""
+
+    def __init__(self, base: Module, transform: Callable):
+        super().__init__(base)
+        self.transform = transform
+
+    @property
+    def base(self):
+        return self._inner
+
+    def forward(self, x, series=None):
+        if series is None:
+            return self.transform(x, self._inner(x))
+        out, out_series = self._inner(x, series)
+        return _through(self.transform, (x, series), (out, out_series))
+
+
+class FourierFeatures(Module):
+    """Random Fourier feature embedding ``[sin(2 pi B x); cos(2 pi B x)]``
+    with ``B ~ N(0, sigma^2)`` of shape ``(n_frequencies, in_dim)``, drawn at
+    init and held fixed: ``B`` rides the parameter dict but is detached in
+    `forward` (the JAX package's `stop_gradient`)."""
+
+    def __init__(self, in_dim: int, n_frequencies: int, sigma: float = 1.0,
+                 *, dtype=None, device=None):
+        super().__init__()
+        self._in = in_dim
+        self.n_frequencies = n_frequencies
+        self.sigma = sigma
+        self.B = nn.Parameter(torch.empty((n_frequencies, in_dim),
+                                          dtype=dtype or default_float(),
+                                          device=device))
+        self.reset_parameters()
+
+    @property
+    def in_dim(self):
+        return self._in
+
+    @property
+    def out_dim(self):
+        return 2 * self.n_frequencies
+
+    @property
+    def has_taylor_rule(self):
+        return True
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        b = self.B
+        b.copy_(self.sigma * torch.randn(tuple(b.shape), generator=generator,
+                                         dtype=b.dtype, device=b.device))
+
+    def forward(self, x, series=None):
+        b = self.B.detach()
+        proj = 2.0 * math.pi * (b @ x)
+        if series is None:
+            return torch.cat([torch.sin(proj), torch.cos(proj)], dim=0)
+        s, s_series, c, c_series = _sin_cos_series(
+            proj, [2.0 * math.pi * (b @ xk) for xk in series])
+        return (torch.cat([s, c], dim=0),
+                tuple(torch.cat([a, b], dim=0)
+                      for a, b in zip(s_series, c_series)))
+
+
+class PeriodicEmbedding(Module):
+    """Exact periodic embedding of one coordinate axis: row ``axis`` is
+    replaced by ``sin(2 pi k x / period), cos(2 pi k x / period)``,
+    k = 1..n_modes, after the other rows.  No parameters."""
+
+    def __init__(self, in_dim: int, axis: int, period: float, n_modes: int):
+        super().__init__()
+        self._in = in_dim
+        self.axis = axis
+        self.period = period
+        self.n_modes = n_modes
+
+    @property
+    def in_dim(self):
+        return self._in
+
+    @property
+    def out_dim(self):
+        return self._in - 1 + 2 * self.n_modes
+
+    @property
+    def has_taylor_rule(self):
+        return True
+
+    def reset_parameters(self, generator=None):
+        del generator
+
+    def _angles(self, x):
+        ks = torch.arange(1, self.n_modes + 1, dtype=x.dtype,
+                          device=x.device)[:, None]
+        return 2.0 * math.pi / self.period * ks * x[self.axis:self.axis + 1]
+
+    def _rest(self, x):
+        return [x[i:i + 1] for i in range(self._in) if i != self.axis]
+
+    def forward(self, x, series=None):
+        ang = self._angles(x)
+        if series is None:
+            return torch.cat(self._rest(x) + [torch.sin(ang), torch.cos(ang)],
+                             dim=0)
+        s, s_series, c, c_series = _sin_cos_series(
+            ang, [self._angles(xk) for xk in series])
+        return (torch.cat(self._rest(x) + [s, c], dim=0),
+                tuple(torch.cat(self._rest(xk) + [a, b], dim=0)
+                      for xk, a, b in zip(series, s_series, c_series)))
 
 
 class TrialFunction:

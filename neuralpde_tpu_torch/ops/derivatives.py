@@ -75,15 +75,20 @@ def _unit(x: torch.Tensor, index: int) -> torch.Tensor:
     return t
 
 
-def jet_derivative(u, x: torch.Tensor, var_index: int,
-                   order: int) -> torch.Tensor:
-    """Pure k-th partial by Taylor mode: the series (e_var, 0, ..., 0) goes
-    through ``u.taylor`` once and its k-th output coefficient is the k-th
-    derivative."""
+def jet_series(u, x: torch.Tensor, var_index: int, order: int) -> list:
+    """``[u(x), ∂u, ..., ∂^order u]`` along coordinate ``var_index`` by one
+    Taylor pass: the series (e_var, 0, ..., 0) goes through ``u.taylor``
+    and its k-th output coefficient is the k-th derivative."""
     series = [_unit(x, var_index)] + [torch.zeros_like(x)
                                       for _ in range(order - 1)]
-    _, coeffs = u.taylor(x, series)
-    return coeffs[order - 1]
+    primal, coeffs = u.taylor(x, series)
+    return [primal, *coeffs]
+
+
+def jet_derivative(u, x: torch.Tensor, var_index: int,
+                   order: int) -> torch.Tensor:
+    """Pure k-th partial (k >= 1) by Taylor mode (`jet_series`)."""
+    return jet_series(u, x, var_index, order)[order]
 
 
 def jvp_derivative(u: Callable, x: torch.Tensor, var_indices: Sequence[int],

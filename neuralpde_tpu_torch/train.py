@@ -4,13 +4,14 @@
 (forward and backward under the discretization's matmul precision), the
 adaptive-weight hook, and a `torch.optim` update.  Parameters are updated in
 place: the carry holds leaf tensors that the optimizer owns.  `solve` runs
-steps on the host and keeps the callback / abstol-stop protocol (reference
-semantics: src/ode_solve.jl:469-481) and logging at `log_frequency`
-(reference: src/discretize.jl:598-643).
+blocks of ``inner_steps`` steps with no host read inside a block, and keeps
+the callback / abstol-stop protocol (reference semantics:
+src/ode_solve.jl:469-481) and logging at `log_frequency` (reference:
+src/discretize.jl:598-643) once per block.
 
-Not ported yet: scanning several steps per host round-trip (``inner_steps``,
-for which a CUDA graph is the plan), checkpoint/resume, profiling, quadrature
-re-solves and `solve_hybrid`.
+Not ported yet: a block as one CUDA graph (it is a plain loop of eager
+steps), checkpoint/resume, profiling, quadrature re-solves and
+`solve_hybrid`.
 """
 
 from __future__ import annotations
@@ -107,14 +108,20 @@ def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
 def solve(prob, optimizer=None, maxiters: int = 1000, *,
           callback: Callable | None = None, abstol: float | None = None,
           generator: torch.Generator | None = None, seed: int = 0,
-          verbose: bool = False):
+          inner_steps: int = 1, verbose: bool = False):
     """Train a `TrainingProblem` (from `discretize`).
 
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
     (default `adam(1e-3)`).  ``generator`` (default: seeded with ``seed``
     on the problem's device) supplies the stochastic strategies' points.
-    ``callback(it, loss, aux)`` returning True stops the run, as do
-    ``loss < abstol`` and a non-finite loss.
+
+    Steps run in blocks of ``inner_steps``, with no host read inside a
+    block.  After each block the iteration count grows by ``inner_steps``
+    and, on the block's last loss and aux, the history gains one entry,
+    ``callback(it, loss, aux)`` runs (True stops the run), logging happens
+    at multiples of the log frequency, and ``loss < abstol`` or a non-finite
+    loss stops the run.  As in the JAX package whole blocks run, so the
+    count passes ``maxiters`` when that is not a multiple of the block.
     """
     optimizer = optimizer or adam(1e-3)
     pinnrep = prob.pinnrep
@@ -137,8 +144,9 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     loss_val, aux = None, {}
     it = 0
     while it < maxiters:
-        carry, (loss, aux) = step(carry, generator)
-        it += 1
+        for _ in range(inner_steps):
+            carry, (loss, aux) = step(carry, generator)
+        it += inner_steps
         loss_val = float(loss)
         history.append(loss_val)
         if verbose:

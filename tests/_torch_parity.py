@@ -37,6 +37,32 @@ def poisson_2d(pkg):
                          [x, y], [u(x, y)])
 
 
+def tree_like(template, rng, scale=0.5):
+    """Normal draws (std ``scale``) in the layout of a JAX parameter tree
+    (nested dicts of arrays, e.g. ``net.init(key)``)."""
+    if isinstance(template, dict):
+        return {k: tree_like(v, rng, scale) for k, v in template.items()}
+    return rng.normal(scale=scale, size=template.shape)
+
+
+def hard(c, o):
+    """bench.py's hard constraint: zero at both ends of [0, 1]."""
+    return c * (1 - c) * o
+
+
+def poisson_2d_hard(pkg):
+    """`poisson_2d` with no boundary conditions, for hard-constrained trial
+    functions (bench.py's SPINN problem)."""
+    x, y = pkg.symbols("x y")
+    u = pkg.DepVar("u")
+    eq = pkg.Eq((pkg.Differential(x) ** 2)(u(x, y))
+                + (pkg.Differential(y) ** 2)(u(x, y)),
+                -pkg.sin(np.pi * x) * pkg.sin(np.pi * y))
+    return pkg.PDESystem(eq, [], [pkg.Domain(x, pkg.Interval(0, 1)),
+                                  pkg.Domain(y, pkg.Interval(0, 1))],
+                         [x, y], [u(x, y)])
+
+
 def poisson_1d(pkg):
     """u'' = -pi^2 sin(pi x) on [0, 1], u(0) = u(1) = 0; u = sin(pi x)."""
     x = pkg.symbols("x")

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions,
+and Gauss-Newton's CUDA-graph inner solve against the same solve step by
+step.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -50,6 +52,37 @@ def test_tanh_jet2_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tanh_jet2_jvp_kernel_matches_plain(cuda, dtype):
+    zs = _inputs((64, 4099), dtype, cuda)
+    ts = _inputs((64, 4099), dtype, cuda, seed=1)
+    before = tj.tanh_jet2_jvp_cuda.launches
+    _, got = torch.func.jvp(tj.tanh_jet2, tuple(zs), tuple(ts))
+    torch.cuda.synchronize()
+    assert tj.tanh_jet2_jvp_cuda.launches == before + 1
+    want = tj.tanh_jet2_jvp_reference(*zs, *ts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_tanh_jet2_vmap_rule_runs_the_kernels_on_the_batch(cuda):
+    zs = _inputs((64, 513), torch.float64, cuda)
+    batch = [torch.stack([t, 2 * t, -t]) for t in _inputs((64, 513),
+                                                           torch.float64,
+                                                           cuda, seed=2)]
+    before = tj.tanh_jet2_jvp_cuda.launches
+    got = torch.func.vmap(lambda *t: torch.func.jvp(
+        tj.tanh_jet2, tuple(zs), t)[1])(*batch)
+    torch.cuda.synchronize()
+    assert tj.tanh_jet2_jvp_cuda.launches == before + 1
+    for i in range(3):
+        want = tj.tanh_jet2_jvp_reference(*zs, *(b[i] for b in batch))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[i], w, **TOL[torch.float64])
+
+
+@pytest.mark.cuda
 def test_tanh_jet2_kernel_rejects_what_it_does_not_take(cuda):
     z, z1, z2 = _inputs((8, 16), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -58,3 +91,83 @@ def test_tanh_jet2_kernel_rejects_what_it_does_not_take(cuda):
         tj.tanh_jet2_forward_cuda(z, z1.double(), z2)
     with pytest.raises(ValueError, match="unsupported"):
         tj.tanh_jet2_forward_cuda(z.half(), z1.half(), z2.half())
+
+
+def _inner_solve(kind, A, b, iters):
+    """One inner solve of Gauss-Newton on the operator ``A`` (``A x ~ b``),
+    on a side stream as `lm_least_squares` runs it."""
+    from neuralpde_tpu_torch import gauss_newton as gn
+
+    with gn._side_stream(b):
+        if kind == "lsqr":
+            damp = torch.tensor(0.3, dtype=b.dtype, device=b.device)
+            x = gn._damped_lsqr(lambda v: A @ v, lambda u: A.T @ u, b, damp,
+                                iters)
+        else:
+            N = A.T @ A + 0.1 * torch.eye(A.shape[1], dtype=A.dtype,
+                                          device=A.device)
+            inv = 1.0 / torch.diagonal(N)
+            M = (lambda r: inv * r) if kind == "cg_jacobi" else None
+            x = gn._cg(lambda p: N @ p, A.T @ b, iters, M)
+    if b.is_cuda:
+        torch.cuda.synchronize()
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,iters", [("lsqr", 10), ("cg", 25),
+                                        ("cg_jacobi", 25)])
+def test_gauss_newton_inner_solve_graph_replay_matches_eager(
+        cuda, monkeypatch, kind, iters):
+    """On a CUDA tensor `_iterate` runs two steps, captures the third as a
+    CUDA graph and replays it: the result equals the same solve run step by
+    step on the card (graph off), and the CPU's."""
+    from neuralpde_tpu_torch import gauss_newton as gn
+
+    rng = np.random.default_rng(3)
+    A = torch.tensor(rng.normal(size=(40, 12)), dtype=torch.float64)
+    b = torch.tensor(rng.normal(size=40), dtype=torch.float64)
+    assert iters > gn._EAGER_STEPS
+    replayed = _inner_solve(kind, A.to(cuda), b.to(cuda), iters)
+    cpu = _inner_solve(kind, A, b, iters)
+    monkeypatch.setattr(gn, "_EAGER_STEPS", 10 ** 6)
+    eager = _inner_solve(kind, A.to(cuda), b.to(cuda), iters)
+    torch.testing.assert_close(replayed, eager, rtol=1e-12, atol=1e-14)
+    torch.testing.assert_close(replayed.cpu(), cpu, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,options", [
+    ("lsqr", {}), ("lsqr", {"scalar_dtype": torch.float64}), ("cg", {}),
+    ("cg", {"precondition": True})], ids=["lsqr", "lsqr_f64", "cg", "cg_jacobi"])
+def test_lm_graph_replay_matches_eager(cuda, monkeypatch, solver, options):
+    """Levenberg-Marquardt on a Taylor-mode residual (the tanh_jet2 kernels
+    inside `torch.func.jvp`/`vjp`): the captured and replayed inner solve
+    gives the same objective history and parameters as step by step."""
+    from neuralpde_tpu_torch import DerivativeEngine, lm_least_squares, mlp
+    from neuralpde_tpu_torch import gauss_newton as gn
+    from neuralpde_tpu_torch.nn.core import TrialFunction
+
+    g = torch.Generator().manual_seed(0)
+    net = mlp([2, 8, 8, 1], dtype=torch.float32)
+    net.reset_parameters(g)
+    theta = {k: v.detach().to(cuda) for k, v in net.named_parameters()}
+    x = torch.rand((2, 64), generator=g).to(cuda)
+    engine = DerivativeEngine("jet")
+
+    def r_fn(th):
+        return engine(TrialFunction(net, th), x, [0, 0], 2).reshape(-1) + 1.0
+
+    runs = []
+    for eager_steps in (gn._EAGER_STEPS, 10 ** 6):
+        monkeypatch.setattr(gn, "_EAGER_STEPS", eager_steps)
+        before = tj.tanh_jet2_jvp_cuda.launches
+        runs.append(lm_least_squares(r_fn, theta, maxiters=3, cg_iters=8,
+                                     solver=solver, **options))
+        assert tj.tanh_jet2_jvp_cuda.launches > before
+    replayed, eager = runs
+    assert replayed.history[-1] < replayed.history[0]
+    np.testing.assert_allclose(replayed.history, eager.history, rtol=1e-6)
+    for k in theta:
+        torch.testing.assert_close(replayed.u[k], eager.u[k], rtol=1e-5,
+                                   atol=1e-6)

@@ -146,10 +146,18 @@ def test_default_initial_parameters_are_seeded():
 
 
 def test_not_yet_ported_options_raise():
-    for option in ({"remat": True}, {"gradient_enhanced": 0.1}):
+    """Integral terms wait for slice 4 of the port, on the dense and on the
+    factorized path; both say so when the problem is built."""
+    x, s = tpkg.symbols("x s")
+    u = tpkg.DepVar("u")
+    system = tpkg.PDESystem(
+        tpkg.Eq(u(x), tpkg.Integral(s, 0.0, 1.0)(u(s))), [],
+        [tpkg.Domain(x, tpkg.Interval(0, 1))], [x], [u(x)])
+    for chain, strategy in ((tpkg.mlp([1, 8, 1]), tpkg.GridTraining(0.2)),
+                            (tpkg.separable_mlp(1, (8,), 4),
+                             tpkg.SeparableTraining(dx=0.2))):
         with pytest.raises(NotImplementedError, match="not ported"):
-            tpkg.PhysicsInformedNN(tpkg.mlp([2, 8, 1]), tpkg.GridTraining(0.2),
-                                   **option)
+            tpkg.discretize(system, tpkg.PhysicsInformedNN(chain, strategy))
 
 
 def test_import_leaves_jax_out():
@@ -223,3 +231,81 @@ def test_enable_x64_switches_the_default_dtype():
         assert tpkg.default_float() == torch.float32
     finally:
         torch.set_default_dtype(before)
+
+
+def allen_cahn(pkg):
+    """u_t = 1e-4 u_xx + 5 (u - u^3) on [-1, 1] x [0, 1], u(x, 0) =
+    x^2 cos(pi x), u(-1, t) = u(1, t)."""
+    x, t = pkg.symbols("x t")
+    u = pkg.DepVar("u")
+    eq = pkg.Eq(pkg.Differential(t)(u(x, t)),
+                1e-4 * (pkg.Differential(x) ** 2)(u(x, t))
+                + 5.0 * (u(x, t) - u(x, t) ** 3))
+    bcs = [pkg.Eq(u(x, 0.0), x ** 2 * pkg.cos(np.pi * x)),
+           pkg.Eq(u(-1.0, t), u(1.0, t))]
+    return pkg.PDESystem(eq, bcs, [pkg.Domain(x, pkg.Interval(-1, 1)),
+                                   pkg.Domain(t, pkg.Interval(0, 1))],
+                         [x, t], [u(x, t)])
+
+
+def poisson_2d_pde_only(pkg):
+    """`poisson_2d` without boundary conditions (bcs=[])."""
+    system = poisson_2d(pkg)
+    return pkg.PDESystem(system.eqs, [], system.domains, system.ivs,
+                         system.dvs)
+
+
+@pytest.mark.parametrize("derivative", ["jvp", "jet"])
+@pytest.mark.parametrize("system, n_bc", [(allen_cahn, 2),
+                                          (poisson_2d_pde_only, 0)],
+                         ids=["allen_cahn", "poisson_pde_only"])
+def test_probe_problems_match_jax(system, n_bc, derivative):
+    """Dense Allen-Cahn (an initial and a periodic condition) and a PDE-only
+    Poisson problem: loss, per-equation losses and gradient, float64."""
+    sizes = [2, 8, 8, 1]
+    jprob, tprob = _problems(system, sizes, lambda pkg: pkg.GridTraining(0.25),
+                             derivative, seed=7)
+    jada = jprob.pinnrep.adaloss.init_state(1, n_bc, jnp.float64)
+    (jloss, jaux), jgrad = jax.value_and_grad(jprob.loss, has_aux=True)(
+        jprob.init_params, {"key": jax.random.key(0), "adaptive": jada})
+    theta = {k: v.clone().requires_grad_(True)
+             for k, v in tprob.init_params.items()}
+    loss, aux = tprob.loss(theta, {
+        "generator": None,
+        "adaptive": tprob.pinnrep.adaloss.init_state(1, n_bc, torch.float64)})
+    loss.backward()
+    assert rel_err(float(loss.detach()), float(jloss)) < 1e-10
+    for name in ("pde_losses", "bc_losses"):
+        if n_bc or name == "pde_losses":
+            assert rel_err(aux[name].detach().numpy(), jaux[name]) < 1e-10
+    want = tpkg.params_from_jax(jax.tree.map(np.asarray, jgrad))
+    for k, v in theta.items():
+        # no bc: the output bias does not reach u_xx + u_yy (JAX: zeros)
+        got = torch.zeros_like(v) if v.grad is None else v.grad
+        assert np.max(np.abs(got.numpy() - want[k].numpy())) <= 1e-10 * max(
+            np.max(np.abs(want[k].numpy())), 1e-300), k
+
+
+def test_solve_inner_steps_runs_blocks():
+    """inner_steps=k: k steps per block; history, callback and the
+    iteration count move once per block, on the block's last loss; the
+    parameters are those of inner_steps=1; whole blocks run, as in JAX."""
+    jprob, tprob = _problems(poisson_1d, [1, 8, 1],
+                             lambda pkg: pkg.GridTraining(0.1), "jet", seed=2)
+    seen = []
+    blocked = tpkg.solve(tprob, tpkg.adam(1e-2), maxiters=12, inner_steps=4,
+                         callback=lambda it, loss, aux: seen.append(
+                             (it, loss)) and False)
+    single = tpkg.solve(tprob, tpkg.adam(1e-2), maxiters=12)
+    assert blocked.iterations == 12 and len(blocked.history) == 3
+    assert [it for it, _ in seen] == [4, 8, 12]
+    assert blocked.history == [single.history[i] for i in (3, 7, 11)]
+    assert [loss for _, loss in seen] == blocked.history
+    for k, v in single.u.items():
+        torch.testing.assert_close(blocked.u[k], v, rtol=0, atol=0)
+    ragged = tpkg.solve(tprob, tpkg.adam(1e-2), maxiters=10, inner_steps=4)
+    jragged = jpkg.solve(jprob, optax.adam(1e-2), maxiters=10, inner_steps=4)
+    assert ragged.iterations == jragged.iterations == 12
+    assert len(ragged.history) == len(jragged.history) == 3
+    stopped = tpkg.solve(tprob, maxiters=40, inner_steps=5, abstol=1e9)
+    assert stopped.iterations == 5 and len(stopped.history) == 1
