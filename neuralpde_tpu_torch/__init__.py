@@ -1,14 +1,18 @@
 """neuralpde_tpu_torch — the PyTorch/CUDA port of `neuralpde_tpu`.
 
-The dense PINN trainer (symbolic front end, lowering, Grid/Stochastic
-training, Taylor-mode derivatives, Adam training), separable (SPINN)
-training and matrix-free Gauss-Newton for one NVIDIA H100, with
+The dense PINN trainer (symbolic front end, lowering, Grid, Stochastic,
+QuasiRandom, ResidualAdaptive and Causal training, Taylor-mode
+derivatives, the adaptive loss weights, `solve` replaying a CUDA graph of
+its step on the card, checkpoint/resume, Adam then L-BFGS), separable
+(SPINN) training and matrix-free Gauss-Newton for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
 
 from .config import default_float, enable_x64, matmul_precision
-from .logging_utils import LogOptions, logscalar, logvector
+from .logging_utils import (
+    LogOptions, TensorBoardLogger, logscalar, logvector,
+)
 from .symbolic.expr import (
     DepVar, Deriv, Differential, Eq, Expr, Integral, IntegralExpr, Num, Param,
     Sym, abs_, acos, asin, atan, cos, cosh, depvars, erf, exp, expand_derivatives,
@@ -25,10 +29,15 @@ from .ops.derivatives import (
     DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
 )
 from .strategies import (
-    GridTraining, StochasticTraining, TrainingStrategy, generate_training_sets,
-    get_bounds,
+    CausalTraining, GridTraining, QuasiRandomTraining, ResidualAdaptiveTraining,
+    StochasticTraining, TrainingStrategy, WeightedIntervalTraining,
+    generate_training_sets, get_bounds,
 )
-from .adaptive import AbstractAdaptiveLoss, NonAdaptiveLoss
+from .adaptive import (
+    AbstractAdaptiveLoss, GradientScaleAdaptiveLoss,
+    InverseDirichletAdaptiveLoss, MiniMaxAdaptiveLoss, NonAdaptiveLoss,
+    ReLoBRaLoAdaptiveLoss, SoftAdaptAdaptiveLoss,
+)
 from .compile.discretize import (
     PhysicsInformedNN, Phi, PINNLossFunctions, PINNRepresentation,
     TrainingProblem, discretize, symbolic_discretize,
@@ -38,7 +47,7 @@ from .compile.lower import (
     get_variables,
 )
 from .compile.separable import SeparableTraining, build_separable_residual
-from .train import SolveResult, adam, make_step, solve
+from .train import SolveResult, adam, lbfgs, make_step, solve, solve_hybrid
 from .gauss_newton import (
     build_residual_vector, lm_least_squares, solve_gauss_newton,
     trust_region_least_squares,

@@ -10,11 +10,25 @@ solution, the number the port is held to beside the JAX package's record:
   spectral reference of `examples/allen_cahn_spinn.py`.
 
 Item 2 (Gauss-Newton) is `solve_gauss_newton` on `poisson_spinn(33, 24, 24)`.
-The full Allen-Cahn recipe takes about ten minutes on one card:
 
-    python -m neuralpde_tpu_torch.accuracy
+Bench's dense recipes:
 
-prints its result as one JSON line.
+* `dense_allen_cahn`: ``accuracy_dense_full``, the dense causal Allen-Cahn
+  recipe (`CausalTraining`, three stages of 333k, 333k and 444k Adam
+  steps, causal eps 1, 10, 100), JAX's best accuracy;
+* `time_to_l2_hard` and `time_to_l2_hybrid`: ``--to-l2-hard`` and
+  ``--to-l2-hybrid``, seconds to an RMS error below 1e-3 on the 2-D
+  Poisson problem (hard-constrained Adam; Adam then L-BFGS).
+
+The full separable Allen-Cahn recipe takes about ten minutes on one card,
+the dense one longer:
+
+    python -m neuralpde_tpu_torch.accuracy            # separable
+    python -m neuralpde_tpu_torch.accuracy --dense    # dense
+    python -m neuralpde_tpu_torch.accuracy --dense --checkpoint DIR
+
+each prints its result as one JSON line; with ``--checkpoint`` a dense run
+that stopped resumes where it stopped when run again.
 """
 
 from __future__ import annotations
@@ -26,10 +40,10 @@ import numpy as np
 import torch
 
 from . import (
-    Chain, DepVar, Differential, Domain, Eq, Interval, NonAdaptiveLoss,
-    PDESystem, PeriodicEmbedding, PhysicsInformedNN, SeparableNet,
-    SeparableTraining, Transformed, adam, cos, depvar_params, discretize, mlp,
-    sin, solve, symbols,
+    CausalTraining, Chain, DepVar, Differential, Domain, Eq, GridTraining,
+    Interval, NonAdaptiveLoss, PDESystem, PeriodicEmbedding, PhysicsInformedNN,
+    SeparableNet, SeparableTraining, StochasticTraining, Transformed, adam,
+    cos, depvar_params, discretize, lbfgs, mlp, sin, solve, symbols,
 )
 from .config import matmul_precision
 
@@ -191,8 +205,230 @@ def allen_cahn_rel_l2(*, rank: int = 256, nodes: int = 256,
             "per_stage": per_stage}
 
 
-def main() -> None:
-    print(json.dumps({"allen_cahn": allen_cahn_rel_l2()}))
+DENSE_AC_STAGES = ((1.0, 1e-3), (10.0, 5e-4), (100.0, 2e-4))  # (eps, lr)
+DENSE_AC_ITERS = (333_000, 333_000, 444_000)
+
+
+def dense_allen_cahn_system() -> PDESystem:
+    """`allen_cahn_system` with bench's dense boundary conditions: the
+    initial condition, ``u(-1, t) = u(1, t)`` and ``u_x(-1, t) =
+    u_x(1, t)`` (a derivative at a fixed coordinate)."""
+    x, t = symbols("x t")
+    u = DepVar("u")
+    Dx = Differential(x)
+    eq = Eq(Differential(t)(u(x, t)),
+            1e-4 * (Dx ** 2)(u(x, t)) + 5.0 * (u(x, t) - u(x, t) ** 3))
+    bcs = [Eq(u(x, 0.0), x ** 2 * cos(np.pi * x)),
+           Eq(u(-1.0, t), u(1.0, t)),
+           Eq(Dx(u(-1.0, t)), Dx(u(1.0, t)))]
+    return PDESystem(eq, bcs, [Domain(x, Interval(-1, 1)),
+                               Domain(t, Interval(0, 1))], [x, t], [u(x, t)])
+
+
+def dense_allen_cahn_problem(causal_eps: float, *, points: int = 8192,
+                             bcs_points: int = 1024, n_slabs: int = 32,
+                             hidden: int = 64, depth: int = 4,
+                             dtype=torch.float32, device="cuda",
+                             init_params=None):
+    """One stage of `bench.py`'s ``accuracy_dense_full``: the net
+    ``Chain(PeriodicEmbedding(2, axis=0, period=2, n_modes=10),
+    *mlp([21, 64, 64, 64, 64, 1]).layers)``, ``CausalTraining(8192, t,
+    bcs_points=1024, n_slabs=32, causal_eps=eps)``, BC weights (100, 1, 1),
+    jet derivatives, true float32 matmuls.  Returns the problem and its
+    strategy."""
+    system = dense_allen_cahn_system()
+    net = Chain(PeriodicEmbedding(2, axis=0, period=2.0, n_modes=10),
+                *mlp([21, *([hidden] * depth), 1], dtype=dtype).layers)
+    strategy = CausalTraining(points, system.ivs[1], bcs_points=bcs_points,
+                              n_slabs=n_slabs, causal_eps=causal_eps)
+    prob = discretize(system, PhysicsInformedNN(
+        net, strategy, derivative="jet", dtype=dtype, device=device,
+        init_params=init_params,
+        adaptive_loss=NonAdaptiveLoss(bc_loss_weights=[100.0, 1.0, 1.0])))
+    return prob, strategy
+
+
+def dense_allen_cahn_rel_l2(prob, theta: dict) -> float:
+    """rel L2 of a dense Allen-Cahn solution against the spectral reference
+    on its 512 x 101 grid."""
+    xg, ts, U = allen_cahn_ground_truth()
+    X, T = np.meshgrid(xg, ts, indexing="ij")
+    with torch.no_grad(), matmul_precision("highest"):
+        got = prob.pinnrep.phi(np.stack([X.ravel(), T.ravel()]),
+                               depvar_params(theta))[0]
+    got = got.double().cpu().numpy()
+    want = U.T.reshape(-1)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def dense_allen_cahn(iters_per_stage=DENSE_AC_ITERS, *, device="cuda",
+                     inner_steps: int = 500, checkpoint_dir: str | None = None,
+                     checkpoint_every: int = 10_000, **kw) -> dict:
+    """`bench.py`'s ``accuracy_dense_full``: Adam through the causal stages
+    of `DENSE_AC_STAGES` in turn, each from the last one's parameters,
+    ``iters_per_stage`` steps each in blocks of ``inner_steps`` (a shorter
+    ``iters_per_stage`` runs the first stages only).  Returns
+    ``{"rel_l2", "seconds", "per_stage": [{"stage", "eps", "iters",
+    "rel_l2", "seconds", "last_weight", "loss"}, ...]}``.
+
+    ``checkpoint_dir`` gives each stage's `solve` a checkpoint directory,
+    ``<checkpoint_dir>/stage<k>``, saved every ``checkpoint_every`` steps:
+    run again, the recipe takes a finished stage's parameters from its
+    checkpoint and resumes an unfinished one where it stopped, drawing the
+    points of a run that never stopped.  A stage's ``seconds`` and
+    ``loss`` are this run's (``loss`` None for a stage finished before)."""
+    theta, per_stage = None, []
+    t0 = time.perf_counter()
+    for k, ((eps, lr), iters) in enumerate(
+            zip(DENSE_AC_STAGES, iters_per_stage), start=1):
+        ts = time.perf_counter()
+        prob, strategy = dense_allen_cahn_problem(eps, device=device, **kw)
+        if theta is not None:
+            prob = prob.with_params(theta)
+        res = solve(prob, adam(lr), maxiters=iters, inner_steps=inner_steps,
+                    checkpoint_dir=(None if checkpoint_dir is None
+                                    else f"{checkpoint_dir}/stage{k}"),
+                    checkpoint_every=checkpoint_every)
+        theta = res.u
+        _synchronize(prob)
+        seconds = time.perf_counter() - ts
+        with torch.no_grad():
+            last = float(strategy.causal_weights(theta)[0][-1])
+        per_stage.append({"stage": k, "eps": eps, "iters": res.iterations,
+                          "rel_l2": dense_allen_cahn_rel_l2(prob, theta),
+                          "seconds": seconds, "last_weight": last,
+                          "loss": res.objective})
+    return {"rel_l2": per_stage[-1]["rel_l2"],
+            "seconds": time.perf_counter() - t0, "per_stage": per_stage}
+
+
+def _synchronize(prob) -> None:
+    if prob.pinnrep.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def poisson_2d_system() -> PDESystem:
+    """`bench.py`'s dense problem: ``u_xx + u_yy = -sin(pi x) sin(pi y)``
+    on the unit square, ``u = 0`` on its four sides."""
+    x, y = symbols("x y")
+    u = DepVar("u")
+    eq = Eq((Differential(x) ** 2)(u(x, y)) + (Differential(y) ** 2)(u(x, y)),
+            -sin(np.pi * x) * sin(np.pi * y))
+    bcs = [Eq(u(0.0, y), 0.0), Eq(u(1.0, y), 0.0),
+           Eq(u(x, 0.0), 0.0), Eq(u(x, 1.0), 0.0)]
+    return PDESystem(eq, bcs, [Domain(x, Interval(0, 1)),
+                               Domain(y, Interval(0, 1))], [x, y], [u(x, y)])
+
+
+def poisson_rms(prob, theta: dict) -> float:
+    """RMS error of a dense Poisson solution on `bench.py`'s 51^2 grid
+    against sin(pi x) sin(pi y) / (2 pi^2)."""
+    xs = np.linspace(0, 1, 51)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    with torch.no_grad(), matmul_precision("highest"):
+        got = prob.pinnrep.phi(np.stack([X.ravel(), Y.ravel()]),
+                               depvar_params(theta))[0]
+    want = np.sin(np.pi * X) * np.sin(np.pi * Y) / (2 * np.pi ** 2)
+    got = got.double().cpu().numpy().reshape(51, 51)
+    return float(np.sqrt(np.mean((got - want) ** 2)))
+
+
+def _hard_box(c, o):
+    """x(1-x) y(1-y) o: zero on the unit square's boundary."""
+    return c[0:1] * (1 - c[0:1]) * c[1:2] * (1 - c[1:2]) * o
+
+
+def time_to_l2_hard(target: float = 1e-3, max_seconds: float = 60.0, *,
+                    points: int = 8192, device="cuda", seed: int = 0) -> dict:
+    """`bench.py`'s ``time_to_l2_hard``: ``Transformed(mlp([2, 64, 64, 1]),
+    x(1-x)y(1-y)·o)``, ``StochasticTraining(8192, bcs_points=1024)``, jet,
+    Adam(2e-3) in solves of 500 steps (blocks of 100) until the RMS error on
+    the 51^2 grid is below ``target``.  One untimed solve warms up.
+    Returns ``{"seconds" (None if the cap was hit), "iterations", "rms",
+    "trace": [(iterations, rms, seconds), ...]}``."""
+    net = Transformed(mlp([2, 64, 64, 1]), _hard_box)
+    prob = discretize(poisson_2d_system(), PhysicsInformedNN(
+        net, StochasticTraining(points, bcs_points=points // 8),
+        derivative="jet", device=device, seed=seed))
+    solve(prob, adam(2e-3), maxiters=500, inner_steps=100)
+    _synchronize(prob)
+    theta, it, trace = prob.init_params, 0, []
+    t0 = time.perf_counter()
+    while True:
+        theta = solve(prob.with_params(theta), adam(2e-3), maxiters=500,
+                      inner_steps=100).u
+        it += 500
+        rms = poisson_rms(prob, theta)
+        trace.append((it, rms, time.perf_counter() - t0))
+        if rms < target or trace[-1][2] > max_seconds:
+            break
+    return {"seconds": trace[-1][2] if rms < target else None,
+            "iterations": it, "rms": rms, "trace": trace}
+
+
+def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
+                      points: int = 8192, grid_dx: float = 1.0 / 127.0,
+                      adam_iters: int = 4000, device="cuda",
+                      seed: int = 0) -> dict:
+    """`bench.py`'s ``time_to_l2_hybrid``: Adam(2e-3) for ``adam_iters``
+    steps on ``StochasticTraining(8192, bcs_points=1024)``, then L-BFGS in
+    solves of 500 steps on ``GridTraining(1/127)`` until the RMS error on
+    the 51^2 grid is below ``target``; ``mlp([2, 64, 64, 1])``, jet.  One
+    untimed Adam and one L-BFGS solve warm up.  Returns ``{"seconds" (None
+    if the cap was hit), "iterations", "rms", "adam_seconds",
+    "lbfgs_ms_per_step", "trace"}``; the L-BFGS steps run eagerly."""
+    system = poisson_2d_system()
+    prob = discretize(system, PhysicsInformedNN(
+        mlp([2, 64, 64, 1]), StochasticTraining(points, bcs_points=points // 8),
+        derivative="jet", device=device, seed=seed))
+    prob_g = discretize(system, PhysicsInformedNN(
+        mlp([2, 64, 64, 1]), GridTraining(grid_dx), derivative="jet",
+        device=device))
+    r = solve(prob, adam(2e-3), maxiters=100, inner_steps=100)
+    solve(prob_g.with_params(r.u), lbfgs(), maxiters=100, inner_steps=100)
+    _synchronize(prob)
+    t0 = time.perf_counter()
+    theta = solve(prob, adam(2e-3), maxiters=adam_iters, inner_steps=100).u
+    _synchronize(prob)
+    adam_seconds = time.perf_counter() - t0
+    it, trace, lbfgs_seconds = adam_iters, [], 0.0
+    trace.append((it, poisson_rms(prob, theta), adam_seconds))
+    while True:
+        ts = time.perf_counter()
+        theta = solve(prob_g.with_params(theta), lbfgs(), maxiters=500,
+                      inner_steps=100).u
+        _synchronize(prob)
+        lbfgs_seconds += time.perf_counter() - ts
+        it += 500
+        rms = poisson_rms(prob, theta)
+        trace.append((it, rms, time.perf_counter() - t0))
+        if rms < target or trace[-1][2] > max_seconds:
+            break
+    return {"seconds": trace[-1][2] if rms < target else None,
+            "iterations": it, "rms": rms, "adam_seconds": adam_seconds,
+            "lbfgs_ms_per_step": 1e3 * lbfgs_seconds / (it - adam_iters),
+            "trace": trace}
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dense", action="store_true",
+                        help="run the dense causal Allen-Cahn recipe "
+                             "(3 stages, 1.11M Adam steps) instead of the "
+                             "separable one")
+    parser.add_argument("--checkpoint", metavar="DIR",
+                        help="with --dense: keep each stage's checkpoints "
+                             "in DIR, and resume from them when run again")
+    args = parser.parse_args(argv)
+    if args.checkpoint and not args.dense:
+        parser.error("--checkpoint applies to --dense only")
+    if args.dense:
+        out = dense_allen_cahn(checkpoint_dir=args.checkpoint)
+        print(json.dumps({"allen_cahn_dense": out}))
+    else:
+        print(json.dumps({"allen_cahn": allen_cahn_rel_l2()}))
 
 
 if __name__ == "__main__":

@@ -78,7 +78,9 @@ class PhysicsInformedNN:
     * additional_loss: fn(phi, theta, p) added to the total loss
     * adaptive_loss: an AbstractAdaptiveLoss (default NonAdaptiveLoss)
     * logger / log_options: logging hook protocol
-    * dtype, device: of parameters, collocation points and losses
+    * dtype, device: of parameters, collocation points and losses; the
+      device defaults to ``"cuda"`` (without a card, building the problem
+      fails with torch's own error); pass ``device="cpu"`` for the CPU
     * loss_accum_dtype: a wider dtype for the mean-square reductions
     * matmul_precision: "highest"/None (true float32 matmuls) or
       "high"/"default" (TF32 tensor cores on the card)
@@ -111,7 +113,7 @@ class PhysicsInformedNN:
         self.log_options = log_options or LogOptions()
         self.seed = seed
         self.dtype = dtype
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         self.loss_accum_dtype = loss_accum_dtype
         self.remat = remat
         self.gradient_enhanced = gradient_enhanced
@@ -338,7 +340,10 @@ def _gradient_enhanced(f, args, weight):
 
 def _rematerialized(f):
     def g(cord, theta):
-        return checkpoint(f, cord, theta, use_reentrant=False)
+        # no random draws inside: nothing to save (and saving the CUDA RNG
+        # state is not allowed while a CUDA graph captures the step)
+        return checkpoint(f, cord, theta, use_reentrant=False,
+                          preserve_rng_state=False)
 
     return g
 

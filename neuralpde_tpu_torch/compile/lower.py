@@ -178,7 +178,8 @@ def _ev(expr: Expr, env: dict, theta, p, ctx: LoweringContext, N: int):
         return _ev_deriv(expr, env, theta, p, ctx, N)
     if isinstance(expr, IntegralExpr):
         raise NotImplementedError(
-            "integral terms are not ported yet (slice 4 of the port)")
+            "integral terms are not ported yet (the quadrature slice of the "
+            "port)")
     raise TypeError(f"cannot lower {type(expr).__name__}")
 
 
@@ -247,7 +248,8 @@ def build_residual_function(eq: Eq, row_layout: Sequence, ctx: LoweringContext,
     if any(isinstance(n, IntegralExpr) for side in (eq.lhs, eq.rhs)
            for n in _walk(side)):
         raise NotImplementedError(
-            "integral terms are not ported yet (slice 4 of the port)")
+            "integral terms are not ported yet (the quadrature slice of the "
+            "port)")
     expr = Call("-", (expand_derivatives(eq.lhs), expand_derivatives(eq.rhs)))
     sym_rows = [(i, s) for i, s in enumerate(row_layout) if isinstance(s, Sym)]
     p_vals = None if default_p is None else [float(v) for v in default_p]

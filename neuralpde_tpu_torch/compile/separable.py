@@ -14,9 +14,9 @@ so an ``N^d``-point residual costs ``N d`` axis-net evaluations; the only
 Selected by the `SeparableTraining` strategy; every chain must be a
 `SeparableNet`.  Equations that cannot factorize (an argument coupling two
 grid axes) are routed to a dense pointwise evaluation on the same grid.
-Integral terms wait for slice 4 of the port (`_integral_grid`).  On one card
-the grid is not sharded (the JAX package's `shard_axis_nodes` is the
-identity here).
+Integral terms wait for the quadrature slice of the port (`_integral_grid`).
+On one card the grid is not sharded (the JAX package's `shard_axis_nodes`
+is the identity here).
 """
 
 from __future__ import annotations
@@ -231,14 +231,17 @@ def _gev(expr: Expr, env: dict, theta, p, gctx: _GridContext):
 def _integral_grid(expr: IntegralExpr, env, theta, p, gctx: _GridContext):
     """Integral terms on the factorized grid: not ported yet."""
     raise NotImplementedError(
-        "integral terms on the factorized grid are not ported yet (slice 4 "
-        "of the port)")
+        "integral terms on the factorized grid are not ported yet (the "
+        "quadrature slice of the port)")
 
 
 def _theta_device(theta: dict) -> torch.device:
+    """The device of the parameters; with none, no device is chosen for the
+    caller (in particular not the CPU), so an empty ``theta`` raises."""
     for v in theta.values():
         return v.device
-    return torch.device("cpu")
+    raise ValueError("a separable residual needs parameters to take its "
+                     "device from; theta is empty")
 
 
 def _expr_residual(expr: Expr, axes, ctx: LoweringContext, nets: dict, dtype,
@@ -440,7 +443,8 @@ class SeparableTraining(TrainingStrategy):
                 plain = residual
 
                 def residual(nodes, theta, plain=plain):
-                    return checkpoint(plain, nodes, theta, use_reentrant=False)
+                    return checkpoint(plain, nodes, theta, use_reentrant=False,
+                                      preserve_rng_state=False)
 
             t_axis = None   # index into the grid-axis list (node sorting)
             t_pos = None    # index into the residual array dims (reduction)

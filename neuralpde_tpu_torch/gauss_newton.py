@@ -27,7 +27,7 @@ from torch.func import jvp, vjp, vmap
 
 from .config import matmul_precision as _matmul_precision
 from .strategies import GridTraining, generate_training_sets
-from .train import SolveResult
+from .train import SolveResult, _side_stream
 from .utils.pytree import parameters_to_vector
 
 
@@ -173,7 +173,7 @@ def build_residual_vector(pinnrep, adaptive_state=None) -> Callable:
     elif type(strategy).__name__ in ("QuadratureTraining", "WeakTraining"):
         raise NotImplementedError(
             f"Gauss-Newton on {type(strategy).__name__} is not ported yet "
-            "(slices 4 and 5 of the port)")
+            "(the quadrature and weak-form slices of the port)")
     else:
         raise TypeError(
             f"Gauss-Newton needs a deterministic strategy (GridTraining or "
@@ -282,22 +282,6 @@ def _iterate(step, state: tuple, iters: int) -> tuple:
     for _ in range(iters - warm):
         graph.replay()
     return static
-
-
-@contextlib.contextmanager
-def _side_stream(like: torch.Tensor):
-    """Run the body on a fresh side stream of ``like``'s CUDA device (a CUDA
-    graph cannot be captured on the default stream, and the backward passes
-    it captures run on their forwards' stream); nothing for CPU tensors."""
-    if not like.is_cuda:
-        yield
-        return
-    caller = torch.cuda.current_stream(like.device)
-    side = torch.cuda.Stream(device=like.device)
-    side.wait_stream(caller)
-    with torch.cuda.stream(side):
-        yield
-    caller.wait_stream(side)
 
 
 def rademacher_probes(n: int, dtype, device, count: int = 8) -> torch.Tensor:

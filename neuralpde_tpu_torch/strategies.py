@@ -4,8 +4,13 @@ src/training_strategies.jl).
 Each strategy pairs a collocation-point source with a loss reduction and
 produces per-equation scalar objectives ``loss(theta, generator) -> scalar``.
 Deterministic strategies ignore the generator; stochastic ones draw a fresh
-sample from it on every call.  Only `GridTraining` and `StochasticTraining`
-are ported so far.
+sample from it on every call, on the problem's device, so a step that
+samples can be captured as a CUDA graph and replayed with fresh draws.
+`QuadratureTraining` waits for the quadrature slice of the port.
+
+The random strategies draw their points through a ``sampler`` attribute,
+``(n, lb, ub, generator) -> (dim, n)``, which tests replace to feed the
+JAX package and the port the same points.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .ops import sampling
 from .ops.sampling import uniform_random
 from .symbolic.expr import Sym
 from .symbolic.system import infimum, supremum
@@ -144,8 +150,12 @@ class StochasticTraining(TrainingStrategy):
 
                 def loss(theta, generator):
                     pts = self.sampler(n, lb, ub, generator)
+                    # a chunk draws no random numbers, so its CUDA RNG
+                    # state is not saved (as jax.checkpoint; saving it is
+                    # not allowed while a CUDA graph captures the step)
                     sums = [checkpoint(chunk_sum, theta, pts[:, c:c + mb],
-                                       use_reentrant=False)
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
                             for c in range(0, n, mb)]
                     return torch.sum(torch.stack(sums)) / n
 
@@ -160,3 +170,286 @@ class StochasticTraining(TrainingStrategy):
         pde = [make(f, b, self.points) for f, b in zip(datafree_pde, pde_bounds)]
         bc = [make(f, b, self.bcs_points) for f, b in zip(datafree_bc, bc_bounds)]
         return pde, bc
+
+
+def _sampled_loss(residual, strategy, bound, n, acc):
+    """mean-square residual at ``n`` points in ``bound`` from the strategy's
+    ``sampler`` (looked up at each call, so a replaced sampler takes
+    effect in a built problem)."""
+    lb, ub = bound
+
+    def loss(theta, generator):
+        return _msq(residual(strategy.sampler(n, lb, ub, generator), theta),
+                    acc)
+
+    return loss
+
+
+class QuasiRandomTraining(TrainingStrategy):
+    """Low-discrepancy sampling (reference: src/training_strategies.jl:266-344).
+
+    ``sampling_alg`` is "lhs" (Latin hypercube, the reference default),
+    "sobol" or "lattice" (a randomly shifted Sobol or rank-1 lattice design,
+    its bits precomputed on the host once and kept on the device).  With
+    ``resampling=True`` every step draws a fresh randomized sample; otherwise
+    ``minibatch`` designs are drawn once (from a generator seeded 0 on the
+    problem's device) and each step picks one at random.
+    """
+
+    def __init__(self, points: int, bcs_points: int | None = None,
+                 sampling_alg: str = "lhs", resampling: bool = True,
+                 minibatch: int = 0):
+        if sampling_alg not in ("lhs", "sobol", "lattice"):
+            raise ValueError("sampling_alg must be 'lhs', 'sobol' or 'lattice'")
+        self.points = points
+        self.bcs_points = bcs_points if bcs_points is not None else points
+        self.sampling_alg = sampling_alg
+        self.resampling = resampling
+        self.minibatch = minibatch
+        self.sampler = None
+
+    def _design(self, n, lb, ub):
+        """The sampler of the chosen design: ``(n, lb, ub, generator)``."""
+        if self.sampling_alg == "lhs":
+            return sampling.latin_hypercube
+        base = (sampling.sobol_bits if self.sampling_alg == "sobol"
+                else sampling.lattice_rule_bits)(n, lb.shape[0])
+        bits = sampling.bits_tensor(base, lb.device)
+        return lambda n, lb, ub, generator: sampling.sobol_sample(
+            bits, lb, ub, generator)
+
+    def build(self, pinnrep, datafree_pde, datafree_bc):
+        dtype, device = pinnrep.dtype, pinnrep.device
+        acc = pinnrep.loss_accum_dtype
+        pde_bounds = get_bounds(pinnrep.domains, pinnrep.pde_args, self.points,
+                                dtype, device)
+        bc_bounds = get_bounds(pinnrep.domains, pinnrep.bc_args, self.points,
+                               dtype, device)
+        if not self.resampling and self.minibatch <= 0:
+            raise ValueError("minibatch must be > 0 when resampling=False")
+
+        def make(residual, bound, n):
+            lb, ub = bound
+            design = self._design(n, lb, ub)
+
+            def sampler(n, lb, ub, generator):
+                return (self.sampler or design)(n, lb, ub, generator)
+
+            if self.resampling:
+                def loss(theta, generator):
+                    return _msq(residual(sampler(n, lb, ub, generator), theta),
+                                acc)
+
+                return loss
+            seeded = torch.Generator(device=device).manual_seed(0)
+            batch = torch.stack([sampler(n, lb, ub, seeded)
+                                 for _ in range(self.minibatch)])
+
+            def loss(theta, generator):
+                idx = torch.randint(0, self.minibatch, (1,),
+                                    generator=generator, device=device)
+                return _msq(residual(torch.index_select(batch, 0, idx)[0],
+                                     theta), acc)
+
+            return loss
+
+        pde = [make(f, b, self.points) for f, b in zip(datafree_pde, pde_bounds)]
+        bc = [make(f, b, self.bcs_points) for f, b in zip(datafree_bc, bc_bounds)]
+        return pde, bc
+
+
+class WeightedIntervalTraining(TrainingStrategy):
+    """ODE-only weighted time-segment sampling
+    (reference: src/training_strategies.jl:438-468)."""
+
+    def __init__(self, weights, points: int, seed: int | None = None):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.points = points
+        self.seed = seed
+
+    def segment_counts(self) -> np.ndarray:
+        """Per-segment sample counts summing to exactly ``points``
+        (largest-remainder apportionment)."""
+        w = self.weights / self.weights.sum()
+        exact = self.points * w
+        counts = np.floor(exact).astype(np.int64)
+        rem = self.points - int(counts.sum())
+        if rem > 0:
+            order = np.argsort(-(exact - counts))
+            counts[order[:rem]] += 1
+        return counts
+
+    def sample_times(self, t0: float, t1: float, rng=None) -> np.ndarray:
+        """One-shot weighted segment sample (drawn once per solve; pass
+        ``seed`` to the constructor for reproducibility)."""
+        rng = rng if rng is not None else np.random.default_rng(self.seed)
+        counts = self.segment_counts()
+        diff = (t1 - t0) / len(counts)
+        ts = [rng.random(int(n)) * diff + t0 + i * diff
+              for i, n in enumerate(counts)]
+        return np.concatenate(ts)
+
+    def build(self, pinnrep, datafree_pde, datafree_bc):
+        raise ValueError(
+            "WeightedIntervalTraining can only be used with ODEs (NNODE)")
+
+
+class ResidualAdaptiveTraining(TrainingStrategy):
+    """Residual-based adaptive collocation sampling (RAD; beyond the
+    reference): each step draws ``candidates`` uniform points, evaluates the
+    residual on them without gradient, and resamples ``points`` of them
+    with probability ∝ |r|^k + c·mean(|r|^k).  BCs take plain uniform
+    sampling (``bcs_points``).
+
+    The JAX package draws the indices by `jax.random.categorical` (the
+    Gumbel-max trick, points × candidates draws); the port draws the same
+    law by inverse CDF (`ops.sampling.categorical`: a cumulative sum and a
+    search of ``points`` uniforms).  ``categorical`` is that draw,
+    ``(weights, n, generator) -> indices``; tests replace it, and
+    ``sampler`` (the candidates), to inject the JAX package's draws.
+    """
+
+    def __init__(self, points: int, candidates: int | None = None,
+                 bcs_points: int | None = None, k: float = 1.0, c: float = 1.0):
+        self.points = points
+        self.candidates = candidates if candidates is not None else 4 * points
+        self.bcs_points = bcs_points if bcs_points is not None else points
+        self.k = k
+        self.c = c
+        self.sampler = uniform_random
+        self.categorical = sampling.categorical
+
+    def build(self, pinnrep, datafree_pde, datafree_bc):
+        dtype, device = pinnrep.dtype, pinnrep.device
+        acc = pinnrep.loss_accum_dtype
+        pde_bounds = get_bounds(pinnrep.domains, pinnrep.pde_args, self.points,
+                                dtype, device)
+        bc_bounds = get_bounds(pinnrep.domains, pinnrep.bc_args, self.points,
+                               dtype, device)
+
+        def make_pde(residual, bound):
+            lb, ub = bound
+
+            def loss(theta, generator):
+                cand = self.sampler(self.candidates, lb, ub, generator)
+                with torch.no_grad():
+                    w = torch.abs(residual(cand, theta)) ** self.k
+                    w = w + self.c * torch.mean(w)
+                    idx = self.categorical(w, self.points, generator)
+                return _msq(residual(cand[:, idx], theta), acc)
+
+            return loss
+
+        pde = [make_pde(f, b) for f, b in zip(datafree_pde, pde_bounds)]
+        bc = [_sampled_loss(f, self, b, self.bcs_points, acc)
+              for f, b in zip(datafree_bc, bc_bounds)]
+        return pde, bc
+
+
+class CausalTraining(TrainingStrategy):
+    """Causality-respecting training for time-dependent PDEs (beyond the
+    reference; Wang, Sankaran & Perdikaris 2022).
+
+    The interior loss is split into ``n_slabs`` consecutive time slabs with
+    mean residuals L_1..L_M, and slab i is weighted
+
+        w_i = exp(-causal_eps * Σ_{j<i} L_j)        (no gradient)
+
+    so later slabs count only once earlier times are resolved.  Sampling is
+    slab-stratified uniform: ``points`` divides into ``n_slabs`` equal
+    slabs, each with ``points/n_slabs`` fresh points a step, the other
+    coordinates uniform.  Equations whose arguments lack ``time_var`` (and
+    all BCs/ICs) take plain stochastic sampling.  ``causal_weights(theta,
+    generator)`` gives the weights (the paper's monitor: done when the last
+    is ≈ 1).
+
+    ``causal_eps`` is the raw form ``exp(-eps·Σ_{j<i} L_j)``, whose scale
+    depends on ``n_slabs``; `SeparableTraining(causal=...)` scales the sum
+    by the node spacing instead.
+    """
+
+    def __init__(self, points: int, time_var, bcs_points: int | None = None,
+                 n_slabs: int = 32, causal_eps: float = 1.0):
+        self.points = points
+        self.time_var = time_var.name if isinstance(time_var, Sym) else str(time_var)
+        self.bcs_points = bcs_points if bcs_points is not None else points
+        self.n_slabs = n_slabs
+        self.causal_eps = causal_eps
+        if points % n_slabs != 0:
+            raise ValueError(
+                f"points ({points}) must be a multiple of n_slabs ({n_slabs})")
+        self.sampler = uniform_random
+        self._weight_fns = []
+
+    def _slab_losses(self, residual, lb, ub, t_idx, acc):
+        """Per-slab mean-square residuals L, shape (n_slabs,), from
+        slab-major stratified sampling."""
+        M, per = self.n_slabs, self.points // self.n_slabs
+
+        def slabs(theta, generator):
+            pts = self.sampler(self.points, lb, ub, generator)
+            # restratify the time row slab-major: slab s spans
+            # [lb_t + s·Δ, lb_t + (s+1)·Δ], Δ = (ub_t − lb_t)/M
+            span = ub[t_idx] - lb[t_idx]
+            u = (pts[t_idx] - lb[t_idx]) / torch.clamp(span, min=1e-30)
+            slab = torch.arange(M, dtype=pts.dtype,
+                                device=pts.device).repeat_interleave(per)
+            t = lb[t_idx] + (slab + u) * span / M
+            pts = torch.cat([pts[:t_idx], t[None], pts[t_idx + 1:]])
+            sq = residual(pts, theta) ** 2
+            if acc is not None:
+                sq = sq.to(acc)
+            return torch.mean(sq.reshape(-1, M, per), dim=(0, 2))
+
+        return slabs
+
+    @staticmethod
+    def _weights(L, eps):
+        csum = torch.cumsum(L, dim=0) - L          # Σ_{j<i} L_j
+        return torch.exp(-eps * csum).detach()
+
+    def build(self, pinnrep, datafree_pde, datafree_bc):
+        dtype, device = pinnrep.dtype, pinnrep.device
+        acc = pinnrep.loss_accum_dtype
+        pde_bounds = get_bounds(pinnrep.domains, pinnrep.pde_args, self.points,
+                                dtype, device)
+        bc_bounds = get_bounds(pinnrep.domains, pinnrep.bc_args,
+                               self.bcs_points, dtype, device)
+        self._weight_fns = []
+
+        def t_index(args):
+            for i, a in enumerate(args):
+                if isinstance(a, Sym) and a.name == self.time_var:
+                    return i
+            return None
+
+        def make_pde(residual, bound, args):
+            t_idx = t_index(args)
+            if t_idx is None:
+                return _sampled_loss(residual, self, bound,
+                                     self.points, acc)
+            slabs = self._slab_losses(residual, *bound, t_idx, acc)
+
+            def loss(theta, generator):
+                L = slabs(theta, generator)
+                return torch.mean(self._weights(L, self.causal_eps) * L)
+
+            self._weight_fns.append(
+                lambda theta, generator: self._weights(
+                    slabs(theta, generator), self.causal_eps))
+            return loss
+
+        pde = [make_pde(f, b, a) for f, b, a in
+               zip(datafree_pde, pde_bounds, pinnrep.pde_args)]
+        bc = [_sampled_loss(f, self, b, self.bcs_points, acc)
+              for f, b in zip(datafree_bc, bc_bounds)]
+        return pde, bc
+
+    def causal_weights(self, theta, generator=None):
+        """Current slab weights per time-dependent equation, from a fresh
+        sample drawn with ``generator`` (torch's default generator if None).
+        Available after the strategy has been built by `discretize`."""
+        if not self._weight_fns:
+            raise ValueError("causal_weights requires a discretized problem "
+                             "(call discretize(system, disc) first)")
+        return [fn(theta, generator) for fn in self._weight_fns]

@@ -2,21 +2,30 @@
 
 `make_step` builds one optimizer step: the weighted loss and its gradient
 (forward and backward under the discretization's matmul precision), the
-adaptive-weight hook, and a `torch.optim` update.  Parameters are updated in
-place: the carry holds leaf tensors that the optimizer owns.  `solve` runs
-blocks of ``inner_steps`` steps with no host read inside a block, and keeps
-the callback / abstol-stop protocol (reference semantics:
-src/ode_solve.jl:469-481) and logging at `log_frequency` (reference:
-src/discretize.jl:598-643) once per block.
+adaptive reweighting every ``reweight_every`` iterations (with the
+per-equation gradients where the scheme needs them), and a `torch.optim`
+update.  Parameters, optimizer state and adaptive state are updated in
+place.  `solve` runs blocks of ``inner_steps`` steps with no host read
+inside a block, and keeps the callback / abstol-stop protocol (reference
+semantics: src/ode_solve.jl:469-481) and logging at `log_frequency`
+(reference: src/discretize.jl:598-643) once per block.
 
-Not ported yet: a block as one CUDA graph (it is a plain loop of eager
-steps), checkpoint/resume, profiling, quadrature re-solves and
-`solve_hybrid`.
+On a CUDA problem `solve` is the counterpart of the JAX package's
+``lax.scan`` under ``jit``: each kind of step (plain, and the one that
+reweights) runs once as it is, then is captured as one CUDA graph
+(forward, backward, update; the stochastic strategies' draws come from the
+solve's generator, registered with the graph, so every replay draws fresh
+points) and replayed for every later step of that kind.  A step that fails
+to capture raises.  `torch.optim.LBFGS` reads scalars on the host in its
+line search and cannot be captured: it is the one optimizer whose steps
+run eagerly on the card.  On the CPU every step runs eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -27,10 +36,86 @@ from .config import matmul_precision
 from .logging_utils import logscalar, logvector
 
 
+class Adam(torch.optim.Optimizer):
+    """optax.adam's rule, updated in place with no host read, so that the
+    step can be captured as a CUDA graph:
+
+        mu <- b1 mu + (1 - b1) g,   nu <- b2 nu + (1 - b2) g^2,   t <- t + 1
+        p  <- p - lr / (1 - b1^t) * mu / (sqrt(nu) / sqrt(1 - b2^t) + eps)
+
+    in the arithmetic of `torch.optim.Adam` (foreach, not capturable), which
+    the port used before its steps were captured: the same moment updates
+    (lerp, addcmul) and, for the bias corrections, float64 values rounded
+    to the parameters' dtype, as torch computes them on the host; here the
+    step count is a float64 tensor on the device.  (`torch.optim.Adam` with
+    ``capturable=True`` keeps its count on the device too, but computes the
+    corrections in float32, another rounding that moves float32 runs.)
+    Parameters without a gradient are skipped."""
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam takes no closure")
+        for group in self.param_groups:
+            lr, b1, b2, eps = (group[k] for k in ("lr", "b1", "b2", "eps"))
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(
+                        count=torch.zeros((), dtype=torch.float64,
+                                          device=p.device),
+                        mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            mus = [st["mu"] for st in states]
+            nus = [st["nu"] for st in states]
+            torch._foreach_lerp_(mus, grads, 1 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+            torch._foreach_add_([st["count"] for st in states], 1)
+            # every parameter with a gradient steps together (the trainer
+            # sets all gradients each step), so one count gives the bias
+            # corrections; float64 even where load_state_dict cast the
+            # counts to the parameters' dtype (it does so for every state
+            # tensor but torch's own "step")
+            t = states[0]["count"].to(torch.float64)
+            dtype = params[0].dtype
+            step_size = (-lr / (1 - torch.pow(b1, t))).to(dtype)
+            bc2_sqrt = torch.sqrt(1 - torch.pow(b2, t)).to(dtype)
+            denoms = torch._foreach_sqrt(nus)
+            torch._foreach_div_(denoms, [bc2_sqrt] * len(denoms))
+            torch._foreach_add_(denoms, eps)
+            for p, q in zip(params, torch._foreach_div(mus, denoms)):
+                p.addcmul_(step_size, q)
+
+
 def adam(lr: float = 1e-3) -> Callable:
-    """Optimizer factory: `torch.optim.Adam` with optax.adam's defaults
-    (betas 0.9/0.999, eps 1e-8), the same update rule."""
-    return lambda params: torch.optim.Adam(params, lr=lr, eps=1e-8)
+    """Optimizer factory: `Adam`, optax.adam's rule and defaults (b1 0.9,
+    b2 0.999, eps 1e-8)."""
+    return lambda params: Adam(params, lr=lr)
+
+
+# evaluations the strong-Wolfe line search may make in one step, optax's
+# default of 15 (torch's default bound, 1.25 x max_iter, would allow none
+# with one iteration per step, and the line search would return t = 0)
+LBFGS_LINESEARCH_STEPS = 15
+
+
+def lbfgs(memory_size: int = 10) -> Callable:
+    """Optimizer factory: `torch.optim.LBFGS` with ``memory_size`` pairs of
+    history, a strong-Wolfe line search and one iteration per step, as
+    `optax.lbfgs` takes one update per step.  The two implementations
+    differ in their line search and first step, so trajectories differ.
+    Its steps run eagerly, also on the card (see the module note)."""
+    return lambda params: torch.optim.LBFGS(
+        list(params), lr=1.0, max_iter=1, max_eval=1 + LBFGS_LINESEARCH_STEPS,
+        history_size=memory_size, line_search_fn="strong_wolfe")
 
 
 @dataclass
@@ -48,44 +133,118 @@ class SolveResult:
         return self.u
 
 
+def _component_grads(loss_fns, theta: dict, generator) -> list:
+    """Per-equation gradients: for each loss, one gradient per parameter in
+    ``theta``'s order, zeros where the loss does not reach a parameter (as
+    `jax.grad` gives them)."""
+    params = list(theta.values())
+    out = []
+    for f in loss_fns:
+        grads = torch.autograd.grad(f(theta, generator), params,
+                                    allow_unused=True)
+        out.append([torch.zeros_like(p) if g is None else g
+                    for p, g in zip(params, grads)])
+    return out
+
+
 class TrainStep:
     """One training step; see `make_step`."""
 
-    def __init__(self, loss_fn, optimizer, adaloss=None, precision=None):
+    def __init__(self, loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
+                 bc_loss_fns=(), precision=None):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.adaloss = adaloss
+        self.pde_loss_fns = list(pde_loss_fns)
+        self.bc_loss_fns = list(bc_loss_fns)
         self.precision = precision
         self.every = getattr(adaloss, "reweight_every", 0) if adaloss else 0
-        if self.every and adaloss.needs_component_grads:
-            raise NotImplementedError(
-                "adaptive losses that need per-component gradients are not "
-                "ported yet")
+
+    @staticmethod
+    def needs_closure(opt) -> bool:
+        """Whether ``opt`` evaluates the loss itself through a closure (and
+        so reads the host, and runs eagerly also on the card)."""
+        return isinstance(opt, torch.optim.LBFGS)
 
     def init(self, params: dict, ada_state: dict, iteration: int = 0):
         """The carry ``(theta, optimizer, ada_state, iteration)``: trainable
-        copies of ``params`` and the optimizer built over them."""
+        copies of ``params``, the optimizer built over them, and a copy of
+        ``ada_state`` that the steps update in place."""
         theta = {k: v.detach().clone().requires_grad_(True)
                  for k, v in params.items()}
+        ada_state = {k: v.clone() for k, v in ada_state.items()}
         return (theta, self.optimizer(list(theta.values())), ada_state,
                 iteration)
+
+    def reweights(self, iteration: int) -> bool:
+        """Whether the step at ``iteration`` (0-based) reweights."""
+        return bool(self.every) and (iteration + 1) % self.every == 0
+
+    def run(self, theta: dict, opt, ada_state: dict, generator,
+            reweight: bool):
+        """One step in place -> ``(loss, aux)``, detached tensors on the
+        device.  Reads nothing back to the host (except under LBFGS), so it
+        can be captured."""
+        if self.needs_closure(opt):
+            return self._run_closure(theta, opt, ada_state, generator, reweight)
+        opt.zero_grad(set_to_none=True)
+        with matmul_precision(self.precision):
+            loss, aux = self.loss_fn(theta, {"generator": generator,
+                                             "adaptive": ada_state})
+            loss.backward()
+            aux = {k: v.detach() for k, v in aux.items()}
+            if reweight:
+                self._reweight(theta, ada_state, aux, generator)
+        opt.step()
+        return loss.detach(), aux
+
+    def _reweight(self, theta, ada_state, aux, generator) -> None:
+        comp = None
+        if self.adaloss.needs_component_grads:
+            comp = (_component_grads(self.pde_loss_fns, theta, generator),
+                    _component_grads(self.bc_loss_fns, theta, generator))
+        new = self.adaloss.reweight(ada_state, theta, aux["pde_losses"],
+                                    aux["bc_losses"], comp, generator)
+        with torch.no_grad():
+            for k, v in new.items():
+                ada_state[k].copy_(v)
+
+    def _run_closure(self, theta, opt, ada_state, generator, reweight):
+        """L-BFGS: every evaluation of its line search draws the step's
+        points again (the generator is rewound to the step's start, as the
+        JAX package's ``value_fn`` reuses the step's key) and sees the
+        weights from before this step's reweighting."""
+        start = generator.get_state() if generator is not None else None
+        weights = ({k: v.clone() for k, v in ada_state.items()} if reweight
+                   else ada_state)
+        first = []
+
+        def closure():
+            if start is not None:
+                generator.set_state(start)
+            opt.zero_grad(set_to_none=True)
+            with matmul_precision(self.precision):
+                loss, aux = self.loss_fn(theta, {"generator": generator,
+                                                 "adaptive": weights})
+                loss.backward()
+                if not first:
+                    first.append((loss.detach(),
+                                  {k: v.detach() for k, v in aux.items()}))
+                    if reweight:
+                        self._reweight(theta, ada_state, first[0][1],
+                                       generator)
+            return loss
+
+        opt.step(closure)
+        return first[0]
 
     def __call__(self, carry, generator: torch.Generator):
         """-> (new carry, (loss, aux)); ``loss`` and ``aux`` are detached
         tensors on the device (reading them waits for the step to finish)."""
         theta, opt, ada_state, it = carry
-        lstate = {"generator": generator, "adaptive": ada_state}
-        opt.zero_grad(set_to_none=True)
-        with matmul_precision(self.precision):
-            loss, aux = self.loss_fn(theta, lstate)
-            loss.backward()
-        aux = {k: v.detach() for k, v in aux.items()}
-        if self.every and (it + 1) % self.every == 0:
-            ada_state = self.adaloss.reweight(
-                ada_state, theta, aux["pde_losses"], aux["bc_losses"], None,
-                generator)
-        opt.step()
-        return (theta, opt, ada_state, it + 1), (loss.detach(), aux)
+        loss, aux = self.run(theta, opt, ada_state, generator,
+                             self.reweights(it))
+        return (theta, opt, ada_state, it + 1), (loss, aux)
 
 
 def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
@@ -98,17 +257,100 @@ def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
     ``step(carry, generator)`` returns ``(carry, (loss, aux))``.  The
     generator is advanced by every step's sampling, in place of the JAX
     package's per-iteration key fold-in.  ``pde_loss_fns``/``bc_loss_fns``
-    are kept for the JAX signature; the schemes that read them are not
-    ported yet.
+    give the per-equation gradients of the schemes that need them.
     """
-    del pde_loss_fns, bc_loss_fns
-    return TrainStep(loss_fn, optimizer, adaloss, matmul_precision)
+    return TrainStep(loss_fn, optimizer, adaloss, pde_loss_fns, bc_loss_fns,
+                     matmul_precision)
+
+
+@contextlib.contextmanager
+def _side_stream(like: torch.Tensor):
+    """Run the body on a fresh side stream of ``like``'s CUDA device (a CUDA
+    graph cannot be captured on the default stream, and the backward passes
+    it captures run on their forwards' stream); nothing for CPU tensors."""
+    if not like.is_cuda:
+        yield
+        return
+    caller = torch.cuda.current_stream(like.device)
+    side = torch.cuda.Stream(device=like.device)
+    side.wait_stream(caller)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        caller.wait_stream(side)
+
+
+class GraphedSteps:
+    """Steps of a `TrainStep` on the card through CUDA graphs.
+
+    Each kind of step (plain, reweighting) runs once as it is, which
+    initializes what the step allocates lazily (optimizer state, library
+    handles); its next occurrence is captured as a CUDA graph on the
+    current stream (a side stream) and replayed from then on.  The graph
+    holds the parameters, gradients, optimizer and adaptive state, and the
+    returned loss and aux, at fixed addresses; the solve's generator is
+    registered with it, so each replay draws fresh points.  Counters of
+    kernel launches see a captured step once, not its replays.
+    """
+
+    def __init__(self, step: TrainStep, carry, generator: torch.Generator):
+        self.step = step
+        self.theta, self.opt, self.ada_state, _ = carry
+        self.generator = generator
+        self.eager = step.needs_closure(self.opt)
+        self._seen: set = set()
+        self._graphs: dict = {}
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    def __call__(self, iteration: int):
+        """Run the step at ``iteration`` -> ``(loss, aux)`` (tensors that a
+        later replay of the same graph overwrites)."""
+        kind = self.step.reweights(iteration)
+        if self.eager or kind not in self._seen:
+            self._seen.add(kind)
+            return self.step.run(self.theta, self.opt, self.ada_state,
+                                 self.generator, kind)
+        if kind not in self._graphs:
+            self._graphs[kind] = self._capture(kind)
+        graph, out = self._graphs[kind]
+        graph.replay()
+        self.replays += 1
+        return out
+
+    def _capture(self, reweight: bool):
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph,
+                                  stream=torch.cuda.current_stream()):
+                out = self.step.run(self.theta, self.opt, self.ada_state,
+                                    self.generator, reweight)
+        except RuntimeError as e:
+            raise RuntimeError(
+                "solve: the training step could not be captured as a CUDA "
+                f"graph ({type(self.opt).__name__}"
+                f"{', reweighting' if reweight else ''}): {e}") from e
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return graph, out
+
+    def stats(self) -> dict:
+        return {"captures": self.captures,
+                "capture_seconds": self.capture_seconds,
+                "replays": self.replays}
 
 
 def solve(prob, optimizer=None, maxiters: int = 1000, *,
           callback: Callable | None = None, abstol: float | None = None,
           generator: torch.Generator | None = None, seed: int = 0,
-          inner_steps: int = 1, verbose: bool = False):
+          inner_steps: int = 1, verbose: bool = False,
+          checkpoint_dir: str | None = None, checkpoint_every: int = 1000,
+          profile_dir: str | None = None, quad_adapt: bool = False,
+          quad_adapt_rounds: int = 3):
     """Train a `TrainingProblem` (from `discretize`).
 
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
@@ -116,13 +358,31 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     on the problem's device) supplies the stochastic strategies' points.
 
     Steps run in blocks of ``inner_steps``, with no host read inside a
-    block.  After each block the iteration count grows by ``inner_steps``
-    and, on the block's last loss and aux, the history gains one entry,
+    block; on the card they replay captured CUDA graphs (module note).
+    After each block the iteration count grows by ``inner_steps`` and, on
+    the block's last loss and aux, the history gains one entry,
     ``callback(it, loss, aux)`` runs (True stops the run), logging happens
     at multiples of the log frequency, and ``loss < abstol`` or a non-finite
     loss stops the run.  As in the JAX package whole blocks run, so the
     count passes ``maxiters`` when that is not a multiple of the block.
+
+    ``checkpoint_dir`` makes the run preemption-safe: parameters, optimizer
+    state, adaptive state, the generator's state and the iteration are
+    saved every ``checkpoint_every`` iterations and at the end, and a
+    directory that holds a checkpoint is resumed from, so ``maxiters``
+    counts iterations across restarts and a resumed run draws the points of
+    one that never stopped.  ``profile_dir`` writes a `torch.profiler`
+    trace of the run there.  ``quad_adapt`` waits for the quadrature slice
+    of the port.
+
+    On the card, ``result.aux["cuda_graph"]`` counts the captures, their
+    seconds and the replays.
     """
+    if quad_adapt:
+        raise NotImplementedError(
+            "solve(quad_adapt=True) re-refines QuadratureTraining rules, "
+            "which are not ported yet (the quadrature slice of the port)")
+    del quad_adapt_rounds
     optimizer = optimizer or adam(1e-3)
     pinnrep = prob.pinnrep
     adaloss = pinnrep.adaloss
@@ -134,40 +394,107 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     ada_state = adaloss.init_state(len(lf.pde_loss_functions),
                                    len(lf.bc_loss_functions), pinnrep.dtype,
                                    device)
-    step = make_step(prob.loss, optimizer, adaloss,
+    step = make_step(prob.loss, optimizer, adaloss, lf.pde_loss_functions,
+                     lf.bc_loss_functions,
                      matmul_precision=pinnrep.matmul_precision)
     carry = step.init(prob.init_params, ada_state)
+    theta, opt, ada_state, _ = carry
+    it = 0
+    if checkpoint_dir is not None:
+        from .utils.checkpoint import has_checkpoint, restore_checkpoint
+
+        if has_checkpoint(checkpoint_dir):
+            it = restore_checkpoint(checkpoint_dir, theta, opt, generator,
+                                    ada_state)[2]
+            if verbose:
+                print(f"[solve] resumed from {checkpoint_dir} at iteration "
+                      f"{it}")
 
     logger = pinnrep.logger
     log_frequency = pinnrep.log_options.log_frequency
     history = []
     loss_val, aux = None, {}
-    it = 0
-    while it < maxiters:
-        for _ in range(inner_steps):
-            carry, (loss, aux) = step(carry, generator)
-        it += inner_steps
-        loss_val = float(loss)
-        history.append(loss_val)
-        if verbose:
-            print(f"[solve] iter {it:6d}  loss {loss_val:.6g}")
-        if logger is not None and it % log_frequency == 0:
-            _log_metrics(logger, aux, it, carry[2])
-        if callback is not None and callback(it, loss_val, aux):
-            break
-        if abstol is not None and loss_val < abstol:
-            break
-        if not math.isfinite(loss_val):
-            warnings.warn(
-                f"training diverged (loss={loss_val}) at iteration {it}; "
-                "stopping — consider a lower learning rate")
-            break
+    graphed = (GraphedSteps(step, carry, generator)
+               if torch.device(device).type == "cuda" else None)
+    if profile_dir is not None:
+        from .utils.profiling import trace
 
-    theta, _, ada_state, _ = carry
-    theta = {k: v.detach() for k, v in theta.items()}
-    return SolveResult(u=theta, objective=loss_val, iterations=it,
-                       aux={**aux, "adaptive_state": ada_state},
+        profiling = trace(profile_dir)
+    else:
+        profiling = contextlib.nullcontext()
+    like = next(iter(theta.values()))
+    with profiling, _side_stream(like):
+        while it < maxiters:
+            for i in range(it, it + inner_steps):
+                if graphed is not None:
+                    loss, aux = graphed(i)
+                else:
+                    loss, aux = step.run(theta, opt, ada_state, generator,
+                                         step.reweights(i))
+            it += inner_steps
+            loss_val = float(loss)
+            aux = {k: v.clone() for k, v in aux.items()}
+            history.append(loss_val)
+            if verbose:
+                print(f"[solve] iter {it:6d}  loss {loss_val:.6g}")
+            if logger is not None and it % log_frequency == 0:
+                _log_metrics(logger, aux, it, ada_state)
+            if callback is not None and callback(it, loss_val, aux):
+                break
+            if checkpoint_dir is not None and it % checkpoint_every < inner_steps:
+                _save(checkpoint_dir, theta, opt, generator, ada_state, it)
+            if abstol is not None and loss_val < abstol:
+                break
+            if not math.isfinite(loss_val):
+                warnings.warn(
+                    f"training diverged (loss={loss_val}) at iteration {it}; "
+                    "stopping — consider a lower learning rate, remat=True, "
+                    "or utils.profiling.enable_nan_debugging() to locate the "
+                    "source")
+                break
+
+    if checkpoint_dir is not None:
+        _save(checkpoint_dir, theta, opt, generator, ada_state, it)
+    result_aux = {**aux, "adaptive_state": ada_state}
+    if graphed is not None:
+        result_aux["cuda_graph"] = graphed.stats()
+    return SolveResult(u={k: v.detach() for k, v in theta.items()},
+                       objective=loss_val, iterations=it, aux=result_aux,
                        history=history)
+
+
+def _save(path, theta, opt, generator, ada_state, it) -> None:
+    from .utils.checkpoint import save_checkpoint
+
+    save_checkpoint(path, theta, opt, iteration=it, generator=generator,
+                    adaptive_state=ada_state)
+
+
+def solve_hybrid(prob, *, adam_iters: int = 2000, lbfgs_iters: int = 1000,
+                 adam_lr: float = 2e-3, inner_steps: int = 50,
+                 abstol: float | None = None,
+                 generator: torch.Generator | None = None, seed: int = 0,
+                 verbose: bool = False, **kw):
+    """Adam, then L-BFGS: the reference docs' wall-clock-to-accuracy pattern
+    (docs/src/tutorials/low_level.md).  Adam escapes the rough early
+    landscape; L-BFGS's curvature steps polish to low loss in far fewer
+    iterations.  The Adam stage replays captured CUDA graphs on the card;
+    the L-BFGS stage (`lbfgs`) runs its steps eagerly, since its line
+    search reads the loss on the host.
+
+    Works best with deterministic strategies (Grid) in the L-BFGS stage:
+    the line search assumes a fixed objective.  Returns a SolveResult whose
+    history concatenates both stages.
+    """
+    r1 = solve(prob, adam(adam_lr), maxiters=adam_iters,
+               inner_steps=inner_steps, generator=generator, seed=seed,
+               verbose=verbose, **kw)
+    r2 = solve(prob.with_params(r1.u), lbfgs(), maxiters=lbfgs_iters,
+               inner_steps=inner_steps, generator=generator, seed=seed,
+               abstol=abstol, verbose=verbose, **kw)
+    return SolveResult(u=r2.u, objective=r2.objective,
+                       iterations=r1.iterations + r2.iterations,
+                       aux=r2.aux, history=r1.history + r2.history)
 
 
 def _log_metrics(logger, aux, step: int, ada_state=None):

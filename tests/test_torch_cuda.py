@@ -1,6 +1,8 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions,
-and Gauss-Newton's CUDA-graph inner solve against the same solve step by
-step.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions;
+Gauss-Newton's CUDA-graph inner solve against the same solve step by step;
+and `solve`'s captured training step (eager against replayed, fresh points
+per replay, the reweighting graph, a capture that fails, L-BFGS eagerly).
+Graph against eager steps: rtol 1e-6 (the same kernels on the same inputs).
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -171,3 +173,153 @@ def test_lm_graph_replay_matches_eager(cuda, monkeypatch, solver, options):
     for k in theta:
         torch.testing.assert_close(replayed.u[k], eager.u[k], rtol=1e-5,
                                    atol=1e-6)
+
+
+def _dense_problem(cuda, strategy, adaloss=None):
+    """bench's 2-D Poisson problem at a small size on the card, float32."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+
+    return npde.discretize(poisson_2d_system(), npde.PhysicsInformedNN(
+        npde.mlp([2, 8, 8, 1]), strategy, derivative="jet",
+        dtype=torch.float32, device=cuda, adaptive_loss=adaloss))
+
+
+def _eager(prob, steps, seed):
+    """``steps`` eager steps through `make_step` -> (losses, parameters,
+    adaptive state)."""
+    import neuralpde_tpu_torch as npde
+
+    pinnrep = prob.pinnrep
+    lf = pinnrep.loss_functions
+    step = npde.make_step(prob.loss, npde.adam(1e-3), pinnrep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions)
+    carry = step.init(prob.init_params, pinnrep.adaloss.init_state(
+        1, 4, torch.float32, pinnrep.device))
+    generator = torch.Generator(device=pinnrep.device).manual_seed(seed)
+    losses = []
+    for _ in range(steps):
+        carry, (loss, _) = step(carry, generator)
+        losses.append(float(loss))
+    return losses, {k: v.detach() for k, v in carry[0].items()}, carry[2]
+
+
+@pytest.mark.cuda
+def test_solve_replays_a_captured_step_equal_to_eager_steps(cuda):
+    """`solve` on the card: one eager step, a capture, replays; the losses
+    and parameters of eager `make_step` steps from the same generator seed
+    (the stochastic points come from the generator inside the graph)."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.StochasticTraining(
+        256, bcs_points=32, microbatch=64))
+    losses, theta, _ = _eager(prob, 6, seed=3)
+    before = tj.tanh_jet2_forward_cuda.launches
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    assert tj.tanh_jet2_forward_cuda.launches > before
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, [losses[2], losses[5]],
+                               rtol=1e-6)
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_each_replay_draws_fresh_points(cuda):
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.ops.sampling import uniform_random
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
+
+    strategy = npde.StochasticTraining(128, bcs_points=16)
+    drawn = torch.zeros((2, 4), device=cuda)
+
+    def sampler(n, lb, ub, generator):
+        pts = uniform_random(n, lb, ub, generator)
+        if n == 128:
+            drawn.copy_(pts[:, :4])
+        return pts
+
+    strategy.sampler = sampler
+    prob = _dense_problem(cuda, strategy)
+    step = npde.make_step(prob.loss, npde.adam(1e-3), prob.pinnrep.adaloss)
+    carry = step.init(prob.init_params, prob.pinnrep.adaloss.init_state(
+        1, 4, torch.float32, cuda))
+    runner = GraphedSteps(step, carry,
+                          torch.Generator(device=cuda).manual_seed(0))
+    seen = []
+    with _side_stream(drawn):
+        for i in range(4):
+            runner(i)
+            seen.append(drawn.clone())
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 3
+    for a, b in zip(seen[1:], seen[2:]):
+        assert not torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reweighting_step_is_its_own_graph_on_schedule(cuda):
+    """GradientScaleAdaptiveLoss every 3 steps: the plain and the
+    reweighting step are captured apart, and the weights follow eager
+    steps."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.GridTraining(0.1),
+                          adaloss=npde.GradientScaleAdaptiveLoss(3))
+    losses, theta, ada = _eager(prob, 12, seed=0)
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=12, inner_steps=4)
+    assert res.aux["cuda_graph"]["captures"] == 2
+    np.testing.assert_allclose(res.history, losses[3::4], rtol=1e-6)
+    torch.testing.assert_close(res.aux["adaptive_state"]["bc_weights"],
+                               ada["bc_weights"], rtol=1e-6, atol=0)
+    assert not torch.equal(ada["bc_weights"], torch.ones_like(
+        ada["bc_weights"]))
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_a_step_that_cannot_be_captured_raises(cuda):
+    """torch.optim.Adam without ``capturable`` refuses capture: `solve`
+    raises instead of running eagerly."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.GridTraining(0.25))
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        npde.solve(prob, lambda ps: torch.optim.Adam(list(ps), lr=1e-3),
+                   maxiters=3)
+
+
+@pytest.mark.cuda
+def test_lbfgs_steps_run_eagerly_on_the_card(cuda):
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.GridTraining(0.1))
+    res = npde.solve(prob, npde.lbfgs(), maxiters=5)
+    assert res.aux["cuda_graph"] == {"captures": 0, "capture_seconds": 0.0,
+                                     "replays": 0}
+    assert res.history[-1] < res.history[0]
+
+
+@pytest.mark.cuda
+def test_port_adam_is_torch_adams_eager_arithmetic_on_the_card(cuda):
+    """`Adam` (device-side step count) against torch.optim.Adam (host-side
+    bias corrections), float32: equal to the last bit."""
+    from neuralpde_tpu_torch.train import Adam
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ps = [torch.randn(shape, generator=g, device=cuda).requires_grad_(True)
+          for shape in ((64, 2), (64, 1), (1, 64))]
+    qs = [p.detach().clone().requires_grad_(True) for p in ps]
+    ref = torch.optim.Adam(ps, lr=2e-3, eps=1e-8, foreach=True)
+    ours = Adam(qs, lr=2e-3)
+    for _ in range(50):
+        for p, q in zip(ps, qs):
+            p.grad = 1e-3 * torch.randn(p.shape, generator=g, device=cuda)
+            q.grad = p.grad.clone()
+        ref.step()
+        ours.step()
+    for p, q in zip(ps, qs):
+        assert torch.equal(p, q)

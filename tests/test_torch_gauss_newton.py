@@ -67,12 +67,13 @@ def _problems(system, builder, strategy, seed=0, dtype=F64,
     tprob = tpkg.discretize(system(tpkg), tpkg.PhysicsInformedNN(
         builder(tpkg, {"dtype": dtype}), strategy(tpkg),
         init_params=tpkg.params_from_jax(tree), dtype=dtype, **pkg_kw(tpkg),
-        **kw))
+        **kw, device="cpu"))
     return jprob, tprob
 
 
 def _full_loss(prob, n_bc):
-    ada = prob.pinnrep.adaloss.init_state(1, n_bc, prob.pinnrep.dtype)
+    ada = prob.pinnrep.adaloss.init_state(1, n_bc, prob.pinnrep.dtype,
+                                          prob.pinnrep.device)
     return float(prob.loss(prob.init_params,
                            {"generator": None, "adaptive": ada})[0])
 
@@ -185,7 +186,8 @@ def test_preconditioned_cg_converges():
     """The JAX test's bar (objective < 1e-4) from the port's own seeded
     initial parameters, with the default probes."""
     prob = tpkg.discretize(poisson_1d(tpkg), tpkg.PhysicsInformedNN(
-        _dense(tpkg, {"dtype": F64}), tpkg.GridTraining(0.05), dtype=F64))
+        _dense(tpkg, {"dtype": F64}), tpkg.GridTraining(0.05), dtype=F64,
+        device="cpu"))
     res = tpkg.solve_gauss_newton(prob, maxiters=20, cg_iters=50,
                                   precondition=True)
     assert res.objective < 1e-4, res.objective
@@ -210,7 +212,7 @@ def test_separable_2d_reaches_adam_unreachable_floor():
     net = tpkg.SeparableNet([tpkg.Transformed(
         tpkg.mlp([1, 24, 24, 24], dtype=F64), _hard) for _ in range(2)])
     prob = tpkg.discretize(poisson_2d_hard(tpkg), tpkg.PhysicsInformedNN(
-        net, tpkg.SeparableTraining(dx=1 / 32), dtype=F64))
+        net, tpkg.SeparableTraining(dx=1 / 32), dtype=F64, device="cpu"))
     # LSQR reaches the bar in fewer products than the JAX test's CG budget
     # (60 x 100): rel L2 3.8e-4 at 25 x 60 in float64
     res = tpkg.solve_gauss_newton(prob, maxiters=25, cg_iters=60,
@@ -234,13 +236,13 @@ def _separable_problem(**strategy):
     ge = strategy.pop("gradient_enhanced", None)
     return tpkg.discretize(system, tpkg.PhysicsInformedNN(
         tpkg.separable_mlp(2, (8,), 4), tpkg.SeparableTraining(**strategy),
-        gradient_enhanced=ge))
+        gradient_enhanced=ge, device="cpu"))
 
 
 class TestRejections:
     def test_stochastic_strategy_rejected(self):
         prob = tpkg.discretize(poisson_1d(tpkg), tpkg.PhysicsInformedNN(
-            _dense(tpkg, {}), tpkg.StochasticTraining(64)))
+            _dense(tpkg, {}), tpkg.StochasticTraining(64), device="cpu"))
         with pytest.raises(TypeError, match="deterministic"):
             tpkg.build_residual_vector(prob.pinnrep)
 

@@ -187,7 +187,7 @@ def _problems(system, builder, strategy, seed=0, **kw):
         jnet, strategy(jpkg), init_params=tree, dtype=jnp.float64, **kw))
     tprob = tpkg.discretize(system(tpkg), tpkg.PhysicsInformedNN(
         builder(tpkg, {"dtype": F64}), strategy(tpkg),
-        init_params=tpkg.params_from_jax(tree), dtype=F64, **kw))
+        init_params=tpkg.params_from_jax(tree), dtype=F64, **kw, device="cpu"))
     return jprob, tprob
 
 
@@ -293,7 +293,7 @@ def _loss_and_grad(prob, n_bc):
              for k, v in prob.init_params.items()}
     loss, _ = prob.loss(theta, {
         "generator": None,
-        "adaptive": prob.pinnrep.adaloss.init_state(1, n_bc, F64)})
+        "adaptive": prob.pinnrep.adaloss.init_state(1, n_bc, F64, "cpu")})
     loss.backward()
     return float(loss.detach()), {k: v.grad for k, v in theta.items()}
 
@@ -385,7 +385,7 @@ def test_adam_steps_of_the_hard_constrained_problem_match_optax():
               jnp.asarray(0, jnp.int32))
     tstep = tpkg.make_step(tprob.loss, tpkg.adam(2e-3), tprob.pinnrep.adaloss)
     tcarry = tstep.init(tprob.init_params,
-                        tprob.pinnrep.adaloss.init_state(1, 0, F64))
+                        tprob.pinnrep.adaloss.init_state(1, 0, F64, "cpu"))
     for _ in range(5):
         jcarry, (jloss, _) = jstep(jcarry, jax.random.key(0))
         tcarry, (tloss, _) = tstep(tcarry, torch.Generator())
@@ -404,7 +404,8 @@ def test_float32_loss_matches_jax():
     tprob = tpkg.discretize(hard_poisson(tpkg), tpkg.PhysicsInformedNN(
         hard_net(tpkg, {"dtype": torch.float32}),
         tpkg.SeparableTraining(dx=1 / 16), init_params=tpkg.params_from_jax(
-            tree), dtype=torch.float32, matmul_precision="highest"))
+            tree), dtype=torch.float32, matmul_precision="highest",
+        device="cpu"))
     got = _losses(tprob, tprob.init_params)
     assert tprob.init_params["depvar.axis_0.layer_0.weight"].dtype == torch.float32
     assert rel_err(got, _jlosses(jprob)) < 1e-5
@@ -414,7 +415,8 @@ class TestErrors:
     def test_dense_chain_rejected(self):
         with pytest.raises(TypeError, match="SeparableNet"):
             tpkg.discretize(hard_poisson(tpkg), tpkg.PhysicsInformedNN(
-                tpkg.mlp([2, 8, 1]), tpkg.SeparableTraining(dx=0.5)))
+                tpkg.mlp([2, 8, 1]), tpkg.SeparableTraining(dx=0.5),
+                device="cpu"))
 
     def test_axis_coupling_argument_rejected(self):
         x, y = tpkg.symbols("x y")
@@ -435,7 +437,7 @@ class TestErrors:
         res, _ = t_sep(tpkg.Eq(u(x, y), tpkg.Integral(s, 0.0, 1.0)(u(s, y))),
                        tctx, {"u": net}, torch.float32)
         theta = {f"depvar.{k}": v for k, v in net.named_parameters()}
-        with pytest.raises(NotImplementedError, match="slice 4") as e:
+        with pytest.raises(NotImplementedError, match="quadrature slice") as e:
             res([np.linspace(0, 1, 4), np.linspace(0, 1, 4)], theta)
         assert "separable fast path" not in str(e.value)
 

@@ -35,7 +35,7 @@ def _problems(system, sizes, strategy, derivative, seed=0):
     tprob = tpkg.discretize(system(tpkg), tpkg.PhysicsInformedNN(
         tpkg.mlp(sizes, dtype=torch.float64), strategy(tpkg),
         init_params=tpkg.params_from_jax(tree), derivative=derivative,
-        dtype=torch.float64))
+        dtype=torch.float64, device="cpu"))
     return jprob, tprob
 
 
@@ -44,7 +44,9 @@ def _grid(pkg):
 
 
 def _ada(prob):
-    return prob.pinnrep.adaloss.init_state(1, 4, prob.pinnrep.dtype)
+    dtype = prob.pinnrep.dtype
+    on = ("cpu",) if isinstance(dtype, torch.dtype) else ()   # the port's
+    return prob.pinnrep.adaloss.init_state(1, 4, dtype, *on)
 
 
 @pytest.mark.parametrize("derivative", ["jvp", "jet"])
@@ -124,7 +126,8 @@ def test_solve_stops_on_callback_abstol_and_divergence():
     bad = tpkg.discretize(poisson_1d(tpkg), tpkg.PhysicsInformedNN(
         tpkg.mlp([1, 8, 1], dtype=torch.float64), tpkg.GridTraining(0.1),
         dtype=torch.float64,
-        additional_loss=lambda phi, theta, p: torch.tensor(float("nan"))))
+        additional_loss=lambda phi, theta, p: torch.tensor(float("nan")),
+        device="cpu"))
     with pytest.warns(UserWarning, match="diverged"):
         res = tpkg.solve(bad, maxiters=50)
     assert res.iterations == 1 and not np.isfinite(res.objective)
@@ -134,7 +137,7 @@ def test_default_initial_parameters_are_seeded():
     def init(seed):
         return tpkg.discretize(poisson_2d(tpkg), tpkg.PhysicsInformedNN(
             tpkg.mlp([2, 8, 1]), tpkg.GridTraining(0.2),
-            seed=seed)).init_params
+            seed=seed, device="cpu")).init_params
 
     a, b, c = init(1), init(1), init(2)
     assert sorted(a) == ["depvar.layer_0.bias", "depvar.layer_0.weight",
@@ -146,8 +149,9 @@ def test_default_initial_parameters_are_seeded():
 
 
 def test_not_yet_ported_options_raise():
-    """Integral terms wait for slice 4 of the port, on the dense and on the
-    factorized path; both say so when the problem is built."""
+    """Integral terms wait for the quadrature slice of the port, on the
+    dense and on the factorized path; both say so when the problem is
+    built."""
     x, s = tpkg.symbols("x s")
     u = tpkg.DepVar("u")
     system = tpkg.PDESystem(
@@ -157,7 +161,8 @@ def test_not_yet_ported_options_raise():
                             (tpkg.separable_mlp(1, (8,), 4),
                              tpkg.SeparableTraining(dx=0.2))):
         with pytest.raises(NotImplementedError, match="not ported"):
-            tpkg.discretize(system, tpkg.PhysicsInformedNN(chain, strategy))
+            tpkg.discretize(system, tpkg.PhysicsInformedNN(chain, strategy,
+                                                           device="cpu"))
 
 
 def test_import_leaves_jax_out():
@@ -194,7 +199,8 @@ def test_loss_weights_match_jax():
     tprob = tpkg.discretize(poisson_2d(tpkg), tpkg.PhysicsInformedNN(
         tpkg.mlp([2, 8, 1], dtype=torch.float64), tpkg.GridTraining(0.2),
         init_params=tpkg.params_from_jax(tree),
-        adaptive_loss=tpkg.NonAdaptiveLoss(**weights), dtype=torch.float64))
+        adaptive_loss=tpkg.NonAdaptiveLoss(**weights), dtype=torch.float64,
+        device="cpu"))
     want, jaux = jprob.loss(jprob.init_params, {"key": jax.random.key(0),
                                                 "adaptive": _ada(jprob)})
     got, aux = tprob.loss(tprob.init_params, {"generator": None,
@@ -204,7 +210,7 @@ def test_loss_weights_match_jax():
                    jaux["weighted_bc_losses"]) < 1e-10
     with pytest.raises(ValueError, match="expected 4 weights"):
         tpkg.NonAdaptiveLoss(bc_loss_weights=[1.0, 2.0]).init_state(
-            1, 4, torch.float64)
+            1, 4, torch.float64, "cpu")
 
 
 def test_matmul_precision_sets_and_restores_tf32():
@@ -272,7 +278,8 @@ def test_probe_problems_match_jax(system, n_bc, derivative):
              for k, v in tprob.init_params.items()}
     loss, aux = tprob.loss(theta, {
         "generator": None,
-        "adaptive": tprob.pinnrep.adaloss.init_state(1, n_bc, torch.float64)})
+        "adaptive": tprob.pinnrep.adaloss.init_state(1, n_bc, torch.float64,
+                                                   "cpu")})
     loss.backward()
     assert rel_err(float(loss.detach()), float(jloss)) < 1e-10
     for name in ("pde_losses", "bc_losses"):

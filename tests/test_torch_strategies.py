@@ -34,7 +34,8 @@ def _problems(jstrategy, tstrategy, dtype=torch.float64, seed=0):
         dtype=JDT[dtype]))
     tprob = tpkg.discretize(poisson_2d(tpkg), tpkg.PhysicsInformedNN(
         tpkg.mlp(SIZES, dtype=dtype), tstrategy,
-        init_params=tpkg.params_from_jax(tree), derivative="jet", dtype=dtype))
+        init_params=tpkg.params_from_jax(tree), derivative="jet", dtype=dtype,
+        device="cpu"))
     return jprob, tprob
 
 
