@@ -4,7 +4,9 @@ The dense PINN trainer (symbolic front end, lowering, Grid, Stochastic,
 QuasiRandom, ResidualAdaptive and Causal training, Taylor-mode
 derivatives, the adaptive loss weights, `solve` replaying a CUDA graph of
 its step on the card, checkpoint/resume, Adam then L-BFGS), separable
-(SPINN) training and matrix-free Gauss-Newton for one NVIDIA H100, with
+(SPINN) training, matrix-free Gauss-Newton, quadrature (integral terms,
+`QuadratureTraining`) and the ODE/DAE solver surface (`solve_ode`,
+`solve_dae`, `neural_adapter`) for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
@@ -29,9 +31,9 @@ from .ops.derivatives import (
     DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
 )
 from .strategies import (
-    CausalTraining, GridTraining, QuasiRandomTraining, ResidualAdaptiveTraining,
-    StochasticTraining, TrainingStrategy, WeightedIntervalTraining,
-    generate_training_sets, get_bounds,
+    CausalTraining, GridTraining, QuadratureTraining, QuasiRandomTraining,
+    ResidualAdaptiveTraining, StochasticTraining, TrainingStrategy,
+    WeightedIntervalTraining, generate_training_sets, get_bounds,
 )
 from .adaptive import (
     AbstractAdaptiveLoss, GradientScaleAdaptiveLoss,
@@ -44,13 +46,17 @@ from .compile.discretize import (
 )
 from .compile.lower import (
     build_loss_function, build_residual_function, depvar_params, get_argument,
-    get_variables,
+    get_integration_variables, get_numeric_integral, get_variables,
 )
 from .compile.separable import SeparableTraining, build_separable_residual
 from .train import SolveResult, adam, lbfgs, make_step, solve, solve_hybrid
 from .gauss_newton import (
-    build_residual_vector, lm_least_squares, solve_gauss_newton,
-    trust_region_least_squares,
+    build_ode_residual_vector, build_residual_vector, lm_least_squares,
+    solve_gauss_newton, solve_ode_gauss_newton, trust_region_least_squares,
+)
+from .solvers import (
+    DAEProblem, NNDAE, NNODE, ODEPhi, ODEProblem, ODESolution, SDEProblem,
+    neural_adapter, solve_dae, solve_ode,
 )
 from .utils.pytree import parameters_to_vector, vector_to_parameters
 from .utils.convert import params_from_jax, params_to_numpy

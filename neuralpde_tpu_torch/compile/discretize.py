@@ -21,12 +21,12 @@ from ..adaptive import AbstractAdaptiveLoss, NonAdaptiveLoss
 from ..config import default_float, matmul_precision
 from ..logging_utils import LogOptions
 from ..ops.derivatives import DerivativeEngine
-from ..strategies import TrainingStrategy
+from ..strategies import QuadratureTraining, TrainingStrategy
 from ..symbolic.expr import Call, Sym, expand_derivatives
 from ..symbolic.system import PDESystem
 from .lower import (
     LoweringContext, build_residual_function, depvar_params, get_argument,
-    get_variables,
+    get_integration_variables, get_variables,
 )
 
 
@@ -78,6 +78,8 @@ class PhysicsInformedNN:
     * additional_loss: fn(phi, theta, p) added to the total loss
     * adaptive_loss: an AbstractAdaptiveLoss (default NonAdaptiveLoss)
     * logger / log_options: logging hook protocol
+    * integral_order, integral_panels: the composite Gauss-Legendre rule of
+      every integral term (nodes per panel, panels per integration axis)
     * dtype, device: of parameters, collocation points and losses; the
       device defaults to ``"cuda"`` (without a card, building the problem
       fails with torch's own error); pass ``device="cpu"`` for the CPU
@@ -95,7 +97,9 @@ class PhysicsInformedNN:
                  additional_loss: Callable | None = None,
                  adaptive_loss: AbstractAdaptiveLoss | None = None,
                  logger=None, log_options: LogOptions | None = None,
-                 seed: int = 0, dtype=None, device=None, remat: bool = False,
+                 seed: int = 0, integral_order: int = 20,
+                 integral_panels: int = 1, dtype=None, device=None,
+                 remat: bool = False,
                  loss_accum_dtype=None, gradient_enhanced: float | None = None,
                  matmul_precision: str | None = None):
         self.multioutput = isinstance(chain, (list, tuple))
@@ -112,6 +116,8 @@ class PhysicsInformedNN:
         self.logger = logger
         self.log_options = log_options or LogOptions()
         self.seed = seed
+        self.integral_order = integral_order
+        self.integral_panels = integral_panels
         self.dtype = dtype
         self.device = torch.device(device if device is not None else "cuda")
         self.loss_accum_dtype = loss_accum_dtype
@@ -163,6 +169,8 @@ class PINNRepresentation:
     strategy: TrainingStrategy
     pde_indvars: list
     bc_indvars: list
+    pde_integration_vars: list = field(default_factory=list)
+    bc_integration_vars: list = field(default_factory=list)
     pde_args: list = field(default_factory=list)
     bc_args: list = field(default_factory=list)
     dtype: Any = None
@@ -170,6 +178,8 @@ class PINNRepresentation:
     loss_accum_dtype: Any = None
     remat: bool = False
     gradient_enhanced: float | None = None
+    integral_order: int = 20
+    integral_panels: int = 1
     log_options: LogOptions = field(default_factory=LogOptions)
     symbolic_pde_loss_functions: list = field(default_factory=list)
     symbolic_bc_loss_functions: list = field(default_factory=list)
@@ -261,16 +271,26 @@ def symbolic_discretize(pde_system: PDESystem,
     eqs, bcs = pde_system.eqs, pde_system.bcs
     pde_args = [get_argument(eq, depvars) for eq in eqs]
     bc_args = [get_argument(bc, depvars) for bc in bcs]
-    pde_layouts = [[a if isinstance(a, Sym) else None for a in args]
-                   for args in pde_args]
-    bc_layouts = [[a if isinstance(a, Sym) else None for a in args]
-                  for args in bc_args]
+    if isinstance(discretization.strategy, QuadratureTraining):
+        # quadrature cord rows = symbol args only (reference: src/discretize.jl:118-124)
+        pde_layouts = [[a for a in args if isinstance(a, Sym)] for args in pde_args]
+        bc_layouts = [[a for a in args if isinstance(a, Sym)] for args in bc_args]
+        pde_indvars, bc_indvars = pde_args, bc_args
+    else:
+        pde_layouts = [[a if isinstance(a, Sym) else None for a in args]
+                       for args in pde_args]
+        bc_layouts = [[a if isinstance(a, Sym) else None for a in args]
+                      for args in bc_args]
+        pde_indvars = [get_variables(eq, depvars) for eq in eqs]
+        bc_indvars = [get_variables(bc, depvars) for bc in bcs]
 
     ctx = LoweringContext(
         depvars=depvars, indvars=indvars, dict_depvar_input=dict_depvar_input,
         modules=chains, multioutput=multioutput,
         derivative=discretization.derivative, eq_params=eq_params,
         param_estim=discretization.param_estim,
+        integral_order=discretization.integral_order,
+        integral_panels=discretization.integral_panels,
     )
 
     pinnrep = PINNRepresentation(
@@ -284,12 +304,15 @@ def symbolic_discretize(pde_system: PDESystem,
         multioutput=multioutput, init_params=init_params,
         flat_init_params=flat_init_params, phi=discretization.phi,
         derivative=discretization.derivative, strategy=discretization.strategy,
-        pde_indvars=[get_variables(eq, depvars) for eq in eqs],
-        bc_indvars=[get_variables(bc, depvars) for bc in bcs],
+        pde_indvars=pde_indvars, bc_indvars=bc_indvars,
+        pde_integration_vars=[get_integration_variables(eq) for eq in eqs],
+        bc_integration_vars=[get_integration_variables(bc) for bc in bcs],
         pde_args=pde_args, bc_args=bc_args, dtype=dtype, device=device,
         loss_accum_dtype=discretization.loss_accum_dtype,
         remat=discretization.remat,
         gradient_enhanced=discretization.gradient_enhanced,
+        integral_order=discretization.integral_order,
+        integral_panels=discretization.integral_panels,
         log_options=discretization.log_options,
         matmul_precision=discretization.matmul_precision,
     )
@@ -360,7 +383,9 @@ def _assemble_loss_functions(pinnrep, datafree_pde,
                              datafree_bc) -> PINNLossFunctions:
     """Strategy build + weighted-sum total loss, from datafree residual
     functions.  Each loss's forward pass runs under the discretization's
-    matmul precision; `train.make_step` runs the backward pass under it too."""
+    matmul precision; `train.make_step` runs the backward pass under it too.
+    Apart from `symbolic_discretize` so that `rebuild_strategy_losses` can
+    build the strategy's rules again, against trained parameters."""
     mp = pinnrep.matmul_precision
     dtype, device = pinnrep.dtype, pinnrep.device
 
@@ -416,6 +441,28 @@ def _assemble_loss_functions(pinnrep, datafree_pde,
         datafree_pde_loss_functions=datafree_pde,
         datafree_bc_loss_functions=datafree_bc,
     )
+
+
+def rebuild_strategy_losses(pinnrep, at_params=None) -> Callable:
+    """Re-run the training strategy's `build` — rule auto-refinement
+    included — with `pinnrep.flat_init_params` set to ``at_params`` (e.g.
+    trained parameters), and reassemble the total loss.
+
+    The rebuild step of `solve(quad_adapt=True)`: an auto-refined
+    `QuadratureTraining` rule was tuned on the initial-params integrand;
+    when `validate_trained` finds that the trained residual outruns it, this
+    refines every equation's rule again, against the trained solution (the
+    reference's always-adaptive semantics, src/training_strategies.jl:406-436,
+    delivered between solves: shapes inside a step are fixed).  Mutates
+    ``pinnrep.loss_functions`` (and ``flat_init_params``); returns the new
+    full loss for a warm-started `TrainingProblem`."""
+    if at_params is not None:
+        pinnrep.flat_init_params = at_params
+    lf = pinnrep.loss_functions
+    pinnrep.loss_functions = _assemble_loss_functions(
+        pinnrep, lf.datafree_pde_loss_functions,
+        lf.datafree_bc_loss_functions)
+    return pinnrep.loss_functions.full_loss_function
 
 
 def discretize(pde_system: PDESystem,

@@ -13,7 +13,10 @@ parameters).
 Every tensor the evaluator creates takes the device and dtype of the
 parameters or collocation points it works on, so constants (``u(0.0, y)``,
 a zero derivative, a literal residual) never bring a CPU or float64 tensor
-into a computation on the card.
+into a computation on the card.  Integral terms become batched fixed-shape
+Gauss-Legendre quadrature whose node and weight tensors are kept on the
+device (`ops.quadrature.rule_tensors`), so a step that integrates can be
+captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -21,14 +24,17 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..nn.core import TrialFunction
 from ..ops.derivatives import DerivativeEngine
+from ..ops.quadrature import adaptive_quad_1d, adaptive_quad_nd, rule_tensors
 from ..symbolic.expr import (
     PRIMITIVES, Call, DepVarCall, Deriv, Eq, Expr, IntegralExpr, Num, Param,
     Sym, expand_derivatives,
 )
+from .transform_inf import transform_inf_integral
 
 
 def depvar_params(theta: dict, name: str | None = None) -> dict:
@@ -51,6 +57,8 @@ class LoweringContext:
     derivative: DerivativeEngine
     eq_params: list = field(default_factory=list)  # Param names, order of ps
     param_estim: bool = False
+    integral_order: int = 20
+    integral_panels: int = 1
 
     def theta_for(self, name, theta):
         return depvar_params(theta, name if self.multioutput else None)
@@ -68,7 +76,9 @@ class LoweringContext:
             dict_depvar_input=pinnrep.dict_depvar_input,
             modules=[p.module for p in phis], multioutput=pinnrep.multioutput,
             derivative=pinnrep.derivative, eq_params=pinnrep.eq_params,
-            param_estim=pinnrep.param_estim)
+            param_estim=pinnrep.param_estim,
+            integral_order=pinnrep.integral_order,
+            integral_panels=pinnrep.integral_panels)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +144,14 @@ def get_variables(eq: Eq, depvars: Sequence[str]) -> list:
     return [a for a in get_argument(eq, depvars) if isinstance(a, Sym)]
 
 
+def get_integration_variables(eq: Eq) -> list:
+    out = []
+    for node in _walk(_eq_expr(eq)):
+        if isinstance(node, IntegralExpr):
+            out.extend(v for v in node.ivars if v not in out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Recursive evaluator
 # ---------------------------------------------------------------------------
@@ -177,9 +195,7 @@ def _ev(expr: Expr, env: dict, theta, p, ctx: LoweringContext, N: int):
     if isinstance(expr, Deriv):
         return _ev_deriv(expr, env, theta, p, ctx, N)
     if isinstance(expr, IntegralExpr):
-        raise NotImplementedError(
-            "integral terms are not ported yet (the quadrature slice of the "
-            "port)")
+        return _ev_integral(expr, env, theta, p, ctx, N)
     raise TypeError(f"cannot lower {type(expr).__name__}")
 
 
@@ -232,9 +248,168 @@ def _ev_deriv(expr: Deriv, env, theta, p, ctx, N):
     return ctx.derivative(u_fn, cord_u, var_indices, len(inputs))[0]
 
 
+def _like(env: dict, theta: dict) -> torch.Tensor:
+    """The tensor whose device and dtype an integral's nodes follow: a
+    collocation row (the problem's dtype), else a parameter."""
+    for v in env.values():
+        if isinstance(v, torch.Tensor):
+            return v
+    for k, v in theta.items():
+        if k.startswith("depvar."):
+            return v
+    raise ValueError("no collocation row or parameter to take a device from")
+
+
+def _row(v, n: int, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number or a tensor) as an ``(n,)`` tensor of ``like``'s
+    device, and of its dtype unless ``v`` is a tensor of another float
+    dtype there (`jnp.broadcast_to`, without promoting a float32 problem:
+    a Python number or a folded constant takes the dtype of ``like``)."""
+    if isinstance(v, torch.Tensor) and v.ndim == 0 \
+            and v.device != like.device:
+        v = float(v)        # a constant folded on the host
+    if isinstance(v, torch.Tensor):
+        return torch.broadcast_to(v, (n,))
+    return torch.full((n,), float(v), dtype=like.dtype, device=like.device)
+
+
+def _spread(env: dict, n: int, q: int) -> dict:
+    """Every row of ``env`` repeated for the ``q`` nodes of each of its
+    ``n`` columns, flattened to ``(n*q,)`` (column-major in the nodes)."""
+    return {k: (torch.broadcast_to(v[..., None], (n, q)).reshape(-1)
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in env.items()}
+
+
+def _ev_integral(expr: IntegralExpr, env, theta, p, ctx, N):
+    """Integral terms -> batched static-shape Gauss-Legendre quadrature.
+
+    The reference solves one adaptive IntegralProblem per collocation column
+    in a host loop (src/discretize.jl:387-394); here the integrand of every
+    column is evaluated at all its nodes in one batch of ``N * Q`` columns.
+    """
+    expr = transform_inf_integral(expr)
+    ndims = len(expr.ivars)
+    like = _like(env, theta)
+
+    def bound(b):
+        return _row(_ev(b, env, theta, p, ctx, N) if isinstance(b, Expr)
+                    else b, N, like)
+
+    if ndims == 1:
+        nu, wu = rule_tensors(1, ctx.integral_order, ctx.integral_panels,
+                              like.dtype, like.device)
+        Q = wu.shape[0]
+        lb, ub = bound(expr.lb[0]), bound(expr.ub[0])
+        scale = ub - lb                                       # (N,)
+        nodes = lb[:, None] + scale[:, None] * nu[0][None, :]   # (N, Q)
+        env_flat = _spread(env, N, Q)
+        env_flat[expr.ivars[0].name] = nodes.reshape(-1)
+        vals = _ev(expr.integrand, env_flat, theta, p, ctx, N * Q)
+        vals = _row(vals, N * Q, like).reshape(N, Q)
+        return torch.sum(vals * wu[None, :], dim=-1) * scale
+
+    # n-D with parametric bounds: rewrite as iterated 1-D integrals
+    # (outermost = first ivar; inner bounds may reference outer ivars,
+    # reference: ProductDomain(UnitInterval(), ClosedInterval(0, x)) in
+    # ide__integrodiff_example_4)
+    if any(isinstance(b, Expr) and not isinstance(b, Num)
+           for b in expr.lb + expr.ub):
+        inner = IntegralExpr(expr.integrand, expr.ivars[1:],
+                             expr.lb[1:], expr.ub[1:])
+        outer = IntegralExpr(inner, expr.ivars[:1], expr.lb[:1], expr.ub[:1])
+        return _ev_integral(outer, env, theta, p, ctx, N)
+
+    # n-D, static numeric bounds: tensor rule on the unit cube
+    lbs = [b.value if isinstance(b, Num) else float(b) for b in expr.lb]
+    ubs = [b.value if isinstance(b, Num) else float(b) for b in expr.ub]
+    nodes_u, weights_u = rule_tensors(ndims, ctx.integral_order,
+                                      ctx.integral_panels, like.dtype,
+                                      like.device)
+    Q = weights_u.shape[0]
+    vol = float(np.prod(np.subtract(ubs, lbs)))
+    env_flat = _spread(env, N, Q)
+    for d, iv in enumerate(expr.ivars):
+        nd = lbs[d] + (ubs[d] - lbs[d]) * nodes_u[d]          # (Q,)
+        env_flat[iv.name] = torch.broadcast_to(nd[None, :], (N, Q)).reshape(-1)
+    vals = _ev(expr.integrand, env_flat, theta, p, ctx, N * Q)
+    vals = _row(vals, N * Q, like).reshape(N, Q)
+    return torch.sum(vals * weights_u[None, :], dim=-1) * vol
+
+
 # ---------------------------------------------------------------------------
 # Public entry: build the residual closure for one equation
 # ---------------------------------------------------------------------------
+
+def _p_values(default_p):
+    return None if default_p is None else [float(v) for v in default_p]
+
+
+def get_numeric_integral(ctx: LoweringContext, default_p=None, *,
+                         adaptive: bool = False, reltol: float = 1e-6,
+                         abstol: float = 1e-3, maxiters: int = 1000):
+    """Debugging helper (reference export: src/discretize.jl:332-396): returns
+    ``integral(expr, cord, theta, env_syms)`` evaluating an IntegralExpr at the
+    columns of ``cord`` (rows bound to ``env_syms`` in order; ``cord`` takes
+    the parameters' device and dtype).
+
+    ``adaptive=True`` switches to the runtime h-adaptive host path honoring
+    reltol/abstol/maxiters — per-column adaptive solves exactly as the
+    reference's per-column IntegralProblem loop (src/discretize.jl:387-394):
+    QuadGKJL-style interval bisection for 1-D integrals, CubatureJLh-style
+    box bisection (`ops.quadrature.adaptive_quad_nd`) for n-D.  The integrand
+    runs on the parameters' device, the bisection on the host, and no
+    gradient flows: use it for evaluation parity, not inside a loss."""
+    p_vals = _p_values(default_p)
+
+    def integral(expr: IntegralExpr, cord, theta, env_syms: Sequence[Sym]):
+        like = next(iter(theta.values()))
+        cord = torch.atleast_2d(torch.as_tensor(cord)).to(
+            device=like.device, dtype=like.dtype)
+        N = cord.shape[1]
+        if not adaptive:
+            env = {s.name: cord[i] for i, s in enumerate(env_syms)}
+            return _ev_integral(expr, env, theta, p_vals, ctx, N)
+
+        expr_t = transform_inf_integral(expr)
+        ivars = [v.name for v in expr_t.ivars]
+        outs = []
+
+        def bound(b, env_j):
+            return (float(_ev(b, env_j, theta, p_vals, ctx, 1))
+                    if isinstance(b, Expr) else float(b))
+
+        def integrand(env_j, rows: dict, n: int):
+            v = _ev(expr_t.integrand, {**env_j, **rows}, theta, p_vals, ctx, n)
+            return _row(v, n, cord)
+
+        with torch.no_grad():
+            for j in range(N):
+                env_j = {s.name: cord[i, j] for i, s in enumerate(env_syms)}
+                lbs = [bound(b, env_j) for b in expr_t.lb]
+                ubs = [bound(b, env_j) for b in expr_t.ub]
+
+                def f(nodes, env_j=env_j):
+                    nodes = torch.as_tensor(np.atleast_2d(nodes),
+                                            dtype=cord.dtype,
+                                            device=cord.device)
+                    return integrand(env_j, dict(zip(ivars, nodes)),
+                                     nodes.shape[1])
+
+                if len(ivars) == 1:
+                    val, _err = adaptive_quad_1d(f, lbs[0], ubs[0],
+                                                 reltol=reltol, abstol=abstol,
+                                                 maxiters=maxiters)
+                else:
+                    val, _err = adaptive_quad_nd(f, lbs, ubs, reltol=reltol,
+                                                 abstol=abstol,
+                                                 maxiters=maxiters)
+                outs.append(val)
+        return torch.as_tensor(np.stack(outs), dtype=cord.dtype,
+                               device=cord.device)
+
+    return integral
+
 
 def build_residual_function(eq: Eq, row_layout: Sequence, ctx: LoweringContext,
                             default_p=None) -> Callable:
@@ -245,14 +420,9 @@ def build_residual_function(eq: Eq, row_layout: Sequence, ctx: LoweringContext,
     ``default_p`` is closed over for non-estimated parameters
     (reference: src/discretize.jl:172 binds default_p the same way).
     """
-    if any(isinstance(n, IntegralExpr) for side in (eq.lhs, eq.rhs)
-           for n in _walk(side)):
-        raise NotImplementedError(
-            "integral terms are not ported yet (the quadrature slice of the "
-            "port)")
     expr = Call("-", (expand_derivatives(eq.lhs), expand_derivatives(eq.rhs)))
     sym_rows = [(i, s) for i, s in enumerate(row_layout) if isinstance(s, Sym)]
-    p_vals = None if default_p is None else [float(v) for v in default_p]
+    p_vals = _p_values(default_p)
 
     def residual(cord, theta):
         N = cord.shape[1]

@@ -14,7 +14,9 @@ so an ``N^d``-point residual costs ``N d`` axis-net evaluations; the only
 Selected by the `SeparableTraining` strategy; every chain must be a
 `SeparableNet`.  Equations that cannot factorize (an argument coupling two
 grid axes) are routed to a dense pointwise evaluation on the same grid.
-Integral terms wait for the quadrature slice of the port (`_integral_grid`).
+Integral terms with constant bounds take temporary quadrature axes on the
+grid (`_integral_grid`); with symbolic bounds they are routed like any
+other equation that cannot factorize.
 On one card the grid is not sharded (the JAX package's `shard_axis_nodes`
 is the identity here).
 """
@@ -29,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..nn.separable import SeparableNet
+from ..ops.quadrature import rule_tensors
 from ..ops.sampling import uniform_nodes
 from ..strategies import (
     TrainingStrategy, _mean_sq_loss, _msq, generate_training_sets, julia_range,
@@ -39,6 +42,7 @@ from ..symbolic.expr import (
 )
 from ..symbolic.system import infimum, supremum
 from .lower import LoweringContext, _walk, get_argument
+from .transform_inf import transform_inf_integral
 
 _AXIS_LETTERS = string.ascii_lowercase[:10]
 
@@ -229,10 +233,54 @@ def _gev(expr: Expr, env: dict, theta, p, gctx: _GridContext):
 
 
 def _integral_grid(expr: IntegralExpr, env, theta, p, gctx: _GridContext):
-    """Integral terms on the factorized grid: not ported yet."""
-    raise NotImplementedError(
-        "integral terms on the factorized grid are not ported yet (the "
-        "quadrature slice of the port)")
+    """Integral terms on the factorized grid: each integration variable
+    becomes a temporary extra grid axis of static Gauss-Legendre nodes, the
+    integrand evaluates through the same factorized machinery on the
+    extended tensor grid, and the quadrature contraction removes the extra
+    axes again.  Constant (or infinite — transformed) bounds only; bounds
+    referencing grid axes couple axes and need a dense strategy."""
+    expr = transform_inf_integral(expr)
+    if any(isinstance(b, Expr) and not isinstance(b, Num)
+           for b in expr.lb + expr.ub):
+        raise NotImplementedError(
+            "integro-differential terms with symbolic/parametric bounds "
+            "cannot factorize on the separable fast path (the bound couples "
+            "grid axes); under SeparableTraining such equations auto-route "
+            "to a dense pointwise evaluation (other equations stay "
+            "factorized) — or use GridTraining/StochasticTraining/"
+            "QuadratureTraining for the whole problem")
+    lbs = [b.value if isinstance(b, Num) else float(b) for b in expr.lb]
+    ubs = [b.value if isinstance(b, Num) else float(b) for b in expr.ub]
+    nu, wu = rule_tensors(1, gctx.ctx.integral_order, gctx.ctx.integral_panels,
+                          gctx.dtype, gctx.device)
+    m = len(expr.ivars)
+    k0 = gctx.k
+
+    env2 = {name: (v.reshape(tuple(v.shape) + (1,) * m)
+                   if isinstance(v, torch.Tensor) and v.ndim else v)
+            for name, v in env.items()}
+    nodes2 = list(gctx.nodes)
+    for d, iv in enumerate(expr.ivars):
+        qn = lbs[d] + (ubs[d] - lbs[d]) * nu[0]
+        nodes2.append(qn)
+        shape = [1] * (k0 + m)
+        shape[k0 + d] = qn.shape[0]
+        env2[iv.name] = qn.reshape(shape)
+
+    top_orders = _top_orders(expr.integrand, gctx.ctx)
+    gctx2 = _GridContext(ctx=gctx.ctx, nets=gctx.nets, nodes=nodes2,
+                         k=k0 + m, dtype=gctx.dtype, device=gctx.device,
+                         top_orders=top_orders, features={})
+    val = torch.as_tensor(_gev(expr.integrand, env2, theta, p, gctx2),
+                          dtype=gctx.dtype, device=gctx.device)
+    if val.ndim == 0:
+        val = val.reshape((1,) * (k0 + m))
+    # no broadcast_to: a size-1 temp axis (ivar-independent integrand)
+    # contracts against the weights (Σw = 1) without materializing the
+    # full extended grid, and the caller broadcasts the outer axes
+    for d in reversed(range(m)):
+        val = torch.sum(val * wu, dim=-1) * (ubs[d] - lbs[d])
+    return val
 
 
 def _theta_device(theta: dict) -> torch.device:

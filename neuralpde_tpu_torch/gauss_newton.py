@@ -10,9 +10,10 @@ so they run without a host sync; the outer damping (LM) or radius (trust
 region) adapts on the host, one sync per outer step.
 
 Deterministic training sets are required (the objective must be fixed
-across inner iterations): `GridTraining` or static-grid
-`SeparableTraining`.  The Quadrature and Weak branches, and the ODE/PINO
-drivers, wait for later slices of the port.
+across inner iterations): `GridTraining`, static-grid `SeparableTraining`
+or `QuadratureTraining` (its fixed rule); `solve_ode_gauss_newton` drives
+an `ODEProblem` + `NNODE` the same way.  The Weak branch and the PINO
+entry points wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ import torch
 from torch.func import jvp, vjp, vmap
 
 from .config import matmul_precision as _matmul_precision
-from .strategies import GridTraining, generate_training_sets
+from .strategies import (
+    GridTraining, QuadratureTraining, WeightedIntervalTraining,
+    generate_training_sets, julia_range,
+)
 from .train import SolveResult, _side_stream
 from .utils.pytree import parameters_to_vector
 
@@ -170,14 +174,67 @@ def build_residual_vector(pinnrep, adaptive_state=None) -> Callable:
                zip(pinnrep.bcs, lf.datafree_bc_loss_functions,
                    pinnrep.bc_args, w_bc)])
 
-    elif type(strategy).__name__ in ("QuadratureTraining", "WeakTraining"):
+    elif isinstance(strategy, QuadratureTraining):
+        # fixed composite rule (deterministic): fold the per-point quadrature
+        # weights into the residual scaling so ||r||² == Σ w_i·Σ_j q_j·r_j²
+        from .ops.quadrature import tensor_rule_box
+        from .symbolic.expr import Sym
+        from .symbolic.system import infimum, supremum
+
+        lo = {d.variables.name: infimum(d.domain) for d in pinnrep.domains}
+        hi = {d.variables.name: supremum(d.domain) for d in pinnrep.domains}
+        theta0 = pinnrep.flat_init_params
+
+        def quad_block(f, args, w):
+            syms = [a for a in args if isinstance(a, Sym)]
+            if not syms:
+                return dense_block(f, torch.zeros((len(args), 10), dtype=dtype,
+                                                  device=device), w)
+            lb = [lo[s.name] for s in syms]
+            ub = [hi[s.name] for s in syms]
+            area = float(np.prod(np.asarray(ub, dtype=np.float64)
+                                 - np.asarray(lb, dtype=np.float64)))
+
+            def rule(p):
+                nodes, weights = tensor_rule_box(lb, ub, strategy.order, p)
+                return (torch.as_tensor(nodes, dtype=dtype, device=device),
+                        torch.as_tensor(weights / area, dtype=dtype,
+                                        device=device))
+
+            # replay the strategy's build-time auto-refinement so the panel
+            # count (and hence ||r||²) matches the trained objective exactly
+            integral_at = None
+            if theta0 is not None and strategy.panels is None:
+                def integral_at(p):
+                    n, wq = rule(p)
+                    with torch.no_grad():
+                        return float(torch.sum(f(n, theta0) ** 2 * wq))
+
+            nodes, q = rule(strategy.resolve_panels(integral_at, len(syms)))
+            # matches the strategy's sum(r²·q) reduction (no /rows)
+            scale = torch.sqrt(q * float(w))[None, :]
+
+            def r(theta):
+                out = torch.atleast_2d(f(nodes, theta))   # (rows, Q)
+                return (out * scale).reshape(-1)
+
+            return r
+
+        blocks = (
+            [quad_block(f, a, w) for f, a, w in
+             zip(lf.datafree_pde_loss_functions, pinnrep.pde_args, w_pde)]
+            + [quad_block(f, a, w) for f, a, w in
+               zip(lf.datafree_bc_loss_functions, pinnrep.bc_args, w_bc)])
+
+    elif type(strategy).__name__ == "WeakTraining":
         raise NotImplementedError(
-            f"Gauss-Newton on {type(strategy).__name__} is not ported yet "
-            "(the quadrature and weak-form slices of the port)")
+            "Gauss-Newton on WeakTraining is not ported yet (the weak-form "
+            "slice of the port)")
     else:
         raise TypeError(
-            f"Gauss-Newton needs a deterministic strategy (GridTraining or "
-            f"SeparableTraining(dx=...)); got {type(strategy).__name__}")
+            f"Gauss-Newton needs a deterministic strategy (GridTraining, "
+            f"SeparableTraining(dx=...) or QuadratureTraining); got "
+            f"{type(strategy).__name__}")
 
     def residuals(theta):
         return torch.cat([b(theta) for b in blocks])
@@ -540,8 +597,8 @@ def trust_region_least_squares(r_fn: Callable, init_params, *,
 def solve_gauss_newton(prob, *, method: str = "lm", adaptive_state=None,
                        **kwargs) -> SolveResult:
     """Gauss-Newton on a discretized `TrainingProblem`'s least-squares
-    objective (deterministic strategies only: GridTraining or static-grid
-    SeparableTraining).
+    objective (deterministic strategies only: GridTraining, static-grid
+    SeparableTraining or QuadratureTraining).
 
     ``method``: "lm" (Levenberg-Marquardt damping, `lm_least_squares`) or
     "tr" (Steihaug trust region, `trust_region_least_squares`).
@@ -551,3 +608,113 @@ def solve_gauss_newton(prob, *, method: str = "lm", adaptive_state=None,
     return _ls_driver(method)(
         build_residual_vector(prob.pinnrep, adaptive_state),
         prob.init_params, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Newton for the ODE solver surface (NNODE)
+# ---------------------------------------------------------------------------
+
+def build_ode_residual_vector(prob, alg, *, dt=None, device=None):
+    """Flat residual ``r(theta) -> (M,)`` for an `ODEProblem` + `NNODE`
+    config with ``||r(θ)||² == total NNODE loss``: physics rows at the
+    strategy's deterministic time points scaled 1/√N (matching
+    `inner_loss`'s sum/N reduction, solvers/ode.py), plus data-L2 rows
+    (scale 1) and Data-Quadrature rows (scale √w) for inverse problems
+    (reference losses: src/ode_solve.jl:184-342).
+
+    Deterministic strategies only: GridTraining or
+    WeightedIntervalTraining (its one-shot sample is drawn at build time,
+    like the reference's per-solve draw).  ``device`` defaults to
+    ``"cuda"``.  Returns ``(r_fn, theta0, phi)``.
+    """
+    from .config import default_float
+    from .solvers.ode import (
+        _batched_f, _problem_p, initial_theta, make_phi, ode_dfdx,
+    )
+
+    dtype = default_float()
+    device = torch.device(device if device is not None else "cuda")
+    t0, t1 = float(prob.tspan[0]), float(prob.tspan[1])
+    if np.iscomplexobj(np.asarray(prob.u0)):
+        raise ValueError("Gauss-Newton residual vectors require real u "
+                         "(complex ODEs: use solve_ode with Adam/L-BFGS)")
+    if alg.additional_loss is not None:
+        raise ValueError(
+            "Gauss-Newton cannot fold NNODE(additional_loss=...) into the "
+            "least-squares residual vector (||r||^2 would silently differ "
+            "from the trained objective) — stack your extra terms as "
+            "residual rows via lm_least_squares instead")
+    scalar_u0 = np.ndim(prob.u0) == 0
+    n_output = 1 if scalar_u0 else int(np.prod(np.shape(prob.u0)))
+    dataset = alg.dataset or []
+
+    theta0 = initial_theta(prob, alg, dtype, device)
+    phi = make_phi(prob, alg, theta0)
+    p_fixed = _problem_p(prob.p, dtype, device)
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    strategy = alg.strategy
+    if strategy is None and dt is not None:
+        strategy = GridTraining(dt)
+    if isinstance(strategy, GridTraining):
+        ts = tensor(julia_range(t0, t1, strategy.dx))
+    elif isinstance(strategy, WeightedIntervalTraining):
+        ts = tensor(strategy.sample_times(t0, t1))
+    else:
+        raise TypeError(
+            "Gauss-Newton needs a deterministic NNODE objective: use "
+            "GridTraining(dx)/dt= or WeightedIntervalTraining; got "
+            f"{type(strategy).__name__}")
+    f_b = _batched_f(prob.f)
+    inv_sqrt_n = float(ts.shape[0]) ** -0.5
+
+    def physics_rows(theta):
+        p_ = theta["p"] if alg.param_estim else p_fixed
+        out = phi(ts, theta)
+        fs = f_b(out[0] if scalar_u0 else out, p_, ts)
+        dxdt = ode_dfdx(phi, ts, theta, alg.autodiff)
+        return (fs - dxdt).reshape(-1) * inv_sqrt_n
+
+    blocks = [physics_rows]
+    if alg.param_estim and dataset:
+        t_d = tensor(dataset[-2])
+        us = torch.stack([tensor(dataset[i]) for i in range(n_output)])
+
+        def data_rows(theta):
+            return (phi(t_d, theta) - us).reshape(-1)  # sum-of-squares: scale 1
+
+        blocks.append(data_rows)
+        if alg.estim_collocate:
+            w = torch.sqrt(tensor(dataset[-1]))
+
+            def collocate_rows(theta):
+                dxdt = ode_dfdx(phi, t_d, theta, alg.autodiff)
+                fs = f_b(us[0] if scalar_u0 else us, theta["p"], t_d)
+                return ((dxdt - fs) * w[None, :]).reshape(-1)
+
+            blocks.append(collocate_rows)
+
+    def r_fn(theta):
+        return torch.cat([b(theta) for b in blocks])
+
+    return r_fn, theta0, phi
+
+
+def solve_ode_gauss_newton(prob, alg, *, dt=None, saveat=None,
+                           save_everystep: bool = True, method: str = "lm",
+                           device=None, **kwargs):
+    """`solve_ode` with Gauss-Newton instead of a first-order optimizer:
+    the NNODE objective (physics + inverse-problem losses) is minimized as
+    the nonlinear least-squares problem it is.  ``method``: "lm" or "tr";
+    ``device`` defaults to ``"cuda"``; remaining kwargs go to
+    `lm_least_squares` or `trust_region_least_squares`.  Returns the same dense
+    `ODESolution` as `solve_ode`."""
+    from .solvers.ode import build_ode_solution
+
+    r_fn, theta0, phi = build_ode_residual_vector(prob, alg, dt=dt,
+                                                  device=device)
+    res = _ls_driver(method)(r_fn, theta0, **kwargs)
+    return build_ode_solution(prob, phi, res, dt=dt, saveat=saveat,
+                              save_everystep=save_everystep)

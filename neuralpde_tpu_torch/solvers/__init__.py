@@ -1,0 +1,4 @@
+from .problems import ODEProblem, ODESolution, SDEProblem, compute_ode_errors
+from .ode import NNODE, ODEPhi, solve_ode
+from .dae import DAEProblem, NNDAE, solve_dae
+from .adapter import neural_adapter

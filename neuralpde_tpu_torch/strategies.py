@@ -6,7 +6,8 @@ produces per-equation scalar objectives ``loss(theta, generator) -> scalar``.
 Deterministic strategies ignore the generator; stochastic ones draw a fresh
 sample from it on every call, on the problem's device, so a step that
 samples can be captured as a CUDA graph and replayed with fresh draws.
-`QuadratureTraining` waits for the quadrature slice of the port.
+`QuadratureTraining` refines its rule when the loss is built, reading
+values on the host there and never inside a step.
 
 The random strategies draw their points through a ``sampler`` attribute,
 ``(n, lb, ub, generator) -> (dim, n)``, which tests replace to feed the
@@ -20,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .ops import sampling
+from .ops.quadrature import tensor_rule_box
 from .ops.sampling import uniform_random
 from .symbolic.expr import Sym
 from .symbolic.system import infimum, supremum
@@ -35,6 +37,15 @@ def _msq(r, acc=None):
     if acc is not None:
         sq = sq.to(acc)
     return torch.mean(sq)
+
+
+def _wsum_sq(r, w, acc=None):
+    """sum(r²·w) with optional wide-dtype accumulation (quadrature loss)."""
+    sq = r * r
+    if acc is not None:
+        sq = sq.to(acc)
+        w = w.to(acc)
+    return torch.sum(sq * w)
 
 
 def julia_range(a: float, b: float, dx: float) -> np.ndarray:
@@ -256,6 +267,160 @@ class QuasiRandomTraining(TrainingStrategy):
         pde = [make(f, b, self.points) for f, b in zip(datafree_pde, pde_bounds)]
         bc = [make(f, b, self.bcs_points) for f, b in zip(datafree_bc, bc_bounds)]
         return pde, bc
+
+
+class QuadratureTraining(TrainingStrategy):
+    """Loss = (1/|Ω|)·∫_Ω ‖residual‖² via a composite Gauss-Legendre tensor
+    rule (reference: src/training_strategies.jl:367-436 uses h-adaptive
+    CubatureJLh).  A training step keeps fixed shapes, so adaptivity runs
+    when the loss is built: with ``panels=None`` (the default) the panel
+    count doubles until two successive composite rules agree on the
+    initial-parameter loss integral to ``reltol``/``abstol``, subject to
+    ``(order·panels)^dim <= maxiters`` integrand evaluations (the
+    reference's maxiters semantics).  An explicit ``panels`` pins the rule
+    and skips refinement.  The rule's nodes and weights lie on the problem's
+    device from then on.
+
+    For runtime h-adaptive *evaluation* parity (the reference's per-point
+    adaptive integrals) see `ops.quadrature.adaptive_quad_1d` and
+    `compile.lower.get_numeric_integral(..., adaptive=True)`.
+    """
+
+    DEFAULT_PANELS = 4  # used when no integrand is available for refinement
+
+    def __init__(self, order: int = 8, panels: int | None = None,
+                 reltol=1e-6, abstol=1e-3, maxiters=1000, batch=0):
+        self.order = order
+        self.panels = panels
+        self.reltol = float(reltol)
+        self.abstol = float(abstol)
+        self.maxiters = int(maxiters)
+        self.batch = batch  # API parity; every node is evaluated in one batch
+        # per-equation trained-rule checks registered by build() when the
+        # rule was auto-refined (see validate_trained)
+        self._trained_checks = []
+
+    @property
+    def static_panels(self) -> int:
+        """Pinned panel count for call sites without a refinement integrand."""
+        return self.panels if self.panels is not None else self.DEFAULT_PANELS
+
+    def resolve_panels(self, integral_at=None, dim: int = 1) -> int:
+        """Static auto-refinement honoring reltol/abstol/maxiters.
+
+        ``integral_at(panels) -> float`` evaluates the loss integral with the
+        given composite-rule panel count (at the initial parameters).  Panels
+        double until two successive rules agree to the tolerances; the node
+        budget ``(order·panels)^dim <= maxiters`` mirrors the reference's
+        max integrand evaluations (src/training_strategies.jl:406-436).
+        Each evaluation is read on the host.
+        """
+        if self.panels is not None:
+            return self.panels
+        if integral_at is None:
+            return self.DEFAULT_PANELS
+        panels = 1
+        prev = float(integral_at(panels))
+        while (self.order * 2 * panels) ** dim <= self.maxiters:
+            cur = float(integral_at(2 * panels))
+            if abs(cur - prev) <= max(self.abstol, self.reltol * abs(cur)):
+                return 2 * panels  # converged; keep the finer rule
+            prev = cur
+            panels *= 2
+        return panels
+
+    def build(self, pinnrep, datafree_pde, datafree_bc):
+        dtype, device = pinnrep.dtype, pinnrep.device
+        lo = {d.variables.name: infimum(d.domain) for d in pinnrep.domains}
+        hi = {d.variables.name: supremum(d.domain) for d in pinnrep.domains}
+        theta0 = pinnrep.flat_init_params
+        acc = pinnrep.loss_accum_dtype
+
+        def make(residual, args):
+            syms = [a for a in args if isinstance(a, Sym)]
+            if not syms:
+                dummy = torch.zeros((len(args), 10), dtype=dtype,
+                                    device=device)
+                return _mean_sq_loss(residual, dummy, acc)
+            lb = [lo[s.name] for s in syms]
+            ub = [hi[s.name] for s in syms]
+            area = float(np.prod(np.asarray(ub) - np.asarray(lb)))
+
+            def rule(p):
+                # quadrature cord rows = symbol args only; constant args are
+                # folded into the residual at lowering time (row layout)
+                nodes, weights = tensor_rule_box(lb, ub, self.order, p)
+                return (torch.as_tensor(nodes, dtype=dtype, device=device),
+                        torch.as_tensor(weights / area, dtype=dtype,
+                                        device=device))
+
+            def integral_of(theta):
+                def at(p):
+                    n, w = rule(p)
+                    with torch.no_grad():
+                        return float(torch.sum(residual(n, theta) ** 2 * w))
+
+                return at
+
+            refine = theta0 is not None and self.panels is None
+            panels = self.resolve_panels(
+                integral_of(theta0) if refine else None, len(syms))
+            nodes, weights = rule(panels)
+
+            if refine:
+                # refinement matched the tolerances only on the
+                # initial-params integrand; register a post-solve check of
+                # the same rule against the trained solution (the reference's
+                # h-adaptive cubature tracks the solution at every step,
+                # src/training_strategies.jl:406-436; this rule is frozen
+                # when the loss is built)
+                def check(theta):
+                    at = integral_of(theta)
+                    v1, v2 = at(panels), at(2 * panels)
+                    ok = abs(v2 - v1) <= max(self.abstol,
+                                             self.reltol * abs(v2))
+                    return {"panels": panels, "loss_at_panels": v1,
+                            "loss_at_2x_panels": v2, "ok": ok}
+
+                self._trained_checks.append(check)
+
+            def loss(theta, generator=None):
+                del generator
+                return _wsum_sq(residual(nodes, theta), weights, acc)
+
+            return loss
+
+        self._trained_checks = []
+        pde = [make(f, a) for f, a in zip(datafree_pde, pinnrep.pde_args)]
+        bc = [make(f, a) for f, a in zip(datafree_bc, pinnrep.bc_args)]
+        return pde, bc
+
+    def validate_trained(self, theta, warn: bool = True) -> list:
+        """Re-run the build-time refinement check at the trained params: for
+        each auto-refined equation, compare the loss integral at the frozen
+        panel count against a doubled rule and flag disagreement beyond
+        reltol/abstol.  Called at the end of `solve`, outside any step;
+        returns the per-equation reports (``ok`` False = the trained
+        solution has sharper structure than the frozen rule resolves —
+        rebuild with more ``panels`` or tighter tolerances and retrain, or
+        pass ``quad_adapt=True`` to `solve`)."""
+        import warnings
+
+        reports = [check(theta) for check in self._trained_checks]
+        bad = [r for r in reports if not r["ok"]]
+        if bad and warn:
+            worst = max(bad, key=lambda r: abs(r["loss_at_2x_panels"]
+                                               - r["loss_at_panels"]))
+            warnings.warn(
+                f"QuadratureTraining: the auto-refined rule no longer meets "
+                f"reltol={self.reltol}/abstol={self.abstol} on the TRAINED "
+                f"solution for {len(bad)} equation(s) (worst: loss "
+                f"{worst['loss_at_panels']:.3e} at {worst['panels']} panels "
+                f"vs {worst['loss_at_2x_panels']:.3e} at double) — the "
+                "trained residual has structure the frozen rule misses; "
+                "rebuild with explicit panels= (or tighter reltol/abstol) "
+                "and retrain")
+        return reports
 
 
 class WeightedIntervalTraining(TrainingStrategy):

@@ -45,7 +45,9 @@ class Adam(torch.optim.Optimizer):
 
     in the arithmetic of `torch.optim.Adam` (foreach, not capturable), which
     the port used before its steps were captured: the same moment updates
-    (lerp, addcmul) and, for the bias corrections, float64 values rounded
+    (lerp, addcmul; for complex parameters the second moment takes
+    ``g·conj(g)``, optax's rule, where torch's treats real and imaginary
+    parts apart) and, for the bias corrections, float64 values rounded
     to the parameters' dtype, as torch computes them on the host; here the
     step count is a float64 tensor on the device.  (`torch.optim.Adam` with
     ``capturable=True`` keeps its count on the device too, but computes the
@@ -77,7 +79,9 @@ class Adam(torch.optim.Optimizer):
             nus = [st["nu"] for st in states]
             torch._foreach_lerp_(mus, grads, 1 - b1)
             torch._foreach_mul_(nus, b2)
-            torch._foreach_addcmul_(nus, grads, grads, 1 - b2)
+            torch._foreach_addcmul_(
+                nus, grads, [g.conj() if g.is_complex() else g for g in grads],
+                1 - b2)
             torch._foreach_add_([st["count"] for st in states], 1)
             # every parameter with a gradient steps together (the trainer
             # sets all gradients each step), so one count gives the bias
@@ -351,7 +355,11 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
           checkpoint_dir: str | None = None, checkpoint_every: int = 1000,
           profile_dir: str | None = None, quad_adapt: bool = False,
           quad_adapt_rounds: int = 3):
-    """Train a `TrainingProblem` (from `discretize`).
+    """Train a `TrainingProblem` (from `discretize`), or any object with
+    ``loss(theta, lstate) -> (total, aux)`` and ``init_params`` whose
+    ``pinnrep`` is None (the ODE solvers' and `neural_adapter`'s problems):
+    such a problem trains on the device and in the dtype of its
+    parameters, with unit loss weights, no reweighting and no logger.
 
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer``
     (default `adam(1e-3)`).  ``generator`` (default: seeded with ``seed``
@@ -372,31 +380,43 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     directory that holds a checkpoint is resumed from, so ``maxiters``
     counts iterations across restarts and a resumed run draws the points of
     one that never stopped.  ``profile_dir`` writes a `torch.profiler`
-    trace of the run there.  ``quad_adapt`` waits for the quadrature slice
-    of the port.
+    trace of the run there.
+
+    ``quad_adapt``: an auto-refined `QuadratureTraining` rule met its
+    tolerances on the initial-params integrand; after training,
+    `validate_trained` checks it again on the trained solution (and warns).
+    With ``quad_adapt=True`` a failing check instead triggers up to
+    ``quad_adapt_rounds`` warm-started re-solves (each with a fresh
+    ``maxiters`` budget and, on the card, its own captured graphs) with the
+    rule refined against the trained params (reference semantics:
+    src/training_strategies.jl:406-436).  The callback is passed on to the
+    re-solves; checkpointing and profiling are not.
 
     On the card, ``result.aux["cuda_graph"]`` counts the captures, their
     seconds and the replays.
     """
-    if quad_adapt:
-        raise NotImplementedError(
-            "solve(quad_adapt=True) re-refines QuadratureTraining rules, "
-            "which are not ported yet (the quadrature slice of the port)")
-    del quad_adapt_rounds
     optimizer = optimizer or adam(1e-3)
-    pinnrep = prob.pinnrep
-    adaloss = pinnrep.adaloss
-    lf = pinnrep.loss_functions
-    device = pinnrep.device
+    pinnrep = getattr(prob, "pinnrep", None)
+    if pinnrep is not None:
+        adaloss = pinnrep.adaloss
+        lf = pinnrep.loss_functions
+        device, dtype = pinnrep.device, pinnrep.dtype
+        pde_fns, bc_fns = lf.pde_loss_functions, lf.bc_loss_functions
+        ada_state = adaloss.init_state(len(pde_fns), len(bc_fns), dtype,
+                                       device)
+        precision = pinnrep.matmul_precision
+    else:
+        from .adaptive import NonAdaptiveLoss
+
+        like = next(iter(prob.init_params.values()))
+        adaloss, pde_fns, bc_fns, precision = None, (), (), None
+        device, dtype = like.device, like.dtype.to_real()
+        ada_state = NonAdaptiveLoss().init_state(0, 0, dtype, device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
 
-    ada_state = adaloss.init_state(len(lf.pde_loss_functions),
-                                   len(lf.bc_loss_functions), pinnrep.dtype,
-                                   device)
-    step = make_step(prob.loss, optimizer, adaloss, lf.pde_loss_functions,
-                     lf.bc_loss_functions,
-                     matmul_precision=pinnrep.matmul_precision)
+    step = make_step(prob.loss, optimizer, adaloss, pde_fns, bc_fns,
+                     matmul_precision=precision)
     carry = step.init(prob.init_params, ada_state)
     theta, opt, ada_state, _ = carry
     it = 0
@@ -410,8 +430,9 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
                 print(f"[solve] resumed from {checkpoint_dir} at iteration "
                       f"{it}")
 
-    logger = pinnrep.logger
-    log_frequency = pinnrep.log_options.log_frequency
+    logger = pinnrep.logger if pinnrep is not None else None
+    log_frequency = (pinnrep.log_options.log_frequency
+                     if pinnrep is not None else 50)
     history = []
     loss_val, aux = None, {}
     graphed = (GraphedSteps(step, carry, generator)
@@ -458,9 +479,68 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     result_aux = {**aux, "adaptive_state": ada_state}
     if graphed is not None:
         result_aux["cuda_graph"] = graphed.stats()
-    return SolveResult(u={k: v.detach() for k, v in theta.items()},
-                       objective=loss_val, iterations=it, aux=result_aux,
-                       history=history)
+        # the graphs go with this run: a re-solve below captures its own,
+        # and this run's memory pool is free before it does
+        graphed = None
+    result = SolveResult(u={k: v.detach() for k, v in theta.items()},
+                         objective=loss_val, iterations=it, aux=result_aux,
+                         history=history)
+    # an auto-refined QuadratureTraining rule was tuned on the initial
+    # params: check it on the trained ones, outside any step, and warn, or
+    # with quad_adapt=True refine it against them and solve again
+    strategy = pinnrep.strategy if pinnrep is not None else None
+    if (getattr(strategy, "_trained_checks", None)
+            and math.isfinite(loss_val if loss_val is not None else math.nan)):
+        if not quad_adapt:
+            strategy.validate_trained(result.u)
+        else:
+            result = _quad_adapt_resolve(
+                result, prob, strategy, optimizer, maxiters,
+                rounds=quad_adapt_rounds, abstol=abstol, generator=generator,
+                inner_steps=inner_steps, verbose=verbose, callback=callback)
+    return result
+
+
+def _quad_adapt_resolve(result, prob, strategy, optimizer, maxiters, *,
+                        rounds, abstol, generator, inner_steps, verbose,
+                        callback=None):
+    """The quadrature-adaptivity loop: while the trained solution outruns
+    the frozen rule, rebuild every equation's rule against the trained
+    params (`rebuild_strategy_losses`) and warm-start a re-solve."""
+    from .compile.discretize import rebuild_strategy_losses
+
+    pinnrep = prob.pinnrep
+    for r in range(rounds):
+        reports = strategy.validate_trained(result.u, warn=False)
+        if all(rep["ok"] for rep in reports):
+            return result
+        if verbose:
+            bad = sum(1 for rep in reports if not rep["ok"])
+            print(f"[solve] quad_adapt round {r + 1}/{rounds}: {bad} "
+                  f"equation rule(s) no longer meet tolerances on the "
+                  f"trained solution; re-refining and re-solving")
+        full_loss = rebuild_strategy_losses(pinnrep, at_params=result.u)
+        prob = type(prob)(full_loss, result.u, pinnrep)
+        # the rebuild registered the refined rule's checks; stash them so
+        # that the inner solve's own end-of-run check does not warn mid-loop
+        checks = strategy._trained_checks
+        strategy._trained_checks = []
+        try:
+            res2 = solve(prob, optimizer, maxiters=maxiters, abstol=abstol,
+                         generator=generator, inner_steps=inner_steps,
+                         verbose=verbose, callback=callback)
+        finally:
+            strategy._trained_checks = checks
+        aux = dict(res2.aux)
+        if "cuda_graph" in aux and "cuda_graph" in result.aux:
+            aux["cuda_graph"] = {k: v + result.aux["cuda_graph"][k]
+                                 for k, v in aux["cuda_graph"].items()}
+        result = SolveResult(u=res2.u, objective=res2.objective,
+                             iterations=result.iterations + res2.iterations,
+                             aux=aux, history=result.history + res2.history)
+    # final honest recheck (warns if the rounds ran out while failing)
+    strategy.validate_trained(result.u)
+    return result
 
 
 def _save(path, theta, opt, generator, ada_state, it) -> None:
@@ -482,9 +562,9 @@ def solve_hybrid(prob, *, adam_iters: int = 2000, lbfgs_iters: int = 1000,
     the L-BFGS stage (`lbfgs`) runs its steps eagerly, since its line
     search reads the loss on the host.
 
-    Works best with deterministic strategies (Grid) in the L-BFGS stage:
-    the line search assumes a fixed objective.  Returns a SolveResult whose
-    history concatenates both stages.
+    Works best with deterministic strategies (Grid, Quadrature) in the
+    L-BFGS stage: the line search assumes a fixed objective.  Returns a
+    SolveResult whose history concatenates both stages.
     """
     r1 = solve(prob, adam(adam_lr), maxiters=adam_iters,
                inner_steps=inner_steps, generator=generator, seed=seed,

@@ -14,7 +14,9 @@ import torch
 
 
 def params_from_jax(tree, *, dtype=None, device=None) -> dict:
-    """Nested dict of arrays -> flat dict of tensors with dotted keys."""
+    """Nested dict of arrays -> flat dict of tensors with dotted keys
+    (``{"depvar": ..., "p": ...}`` keeps ``"p"`` as it is).  A real
+    ``dtype`` gives complex leaves the complex dtype of that width."""
     out = {}
 
     def walk(node, prefix):
@@ -22,7 +24,11 @@ def params_from_jax(tree, *, dtype=None, device=None) -> dict:
             for k, v in node.items():
                 walk(v, f"{prefix}{k}.")
             return
-        out[prefix[:-1]] = torch.as_tensor(np.array(node), dtype=dtype,
+        array = np.array(node)
+        leaf_dtype = dtype
+        if dtype is not None and np.iscomplexobj(array) and not dtype.is_complex:
+            leaf_dtype = dtype.to_complex()
+        out[prefix[:-1]] = torch.as_tensor(array, dtype=leaf_dtype,
                                            device=device)
 
     walk(tree, "")

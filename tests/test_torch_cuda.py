@@ -195,7 +195,8 @@ def _eager(prob, steps, seed):
     step = npde.make_step(prob.loss, npde.adam(1e-3), pinnrep.adaloss,
                           lf.pde_loss_functions, lf.bc_loss_functions)
     carry = step.init(prob.init_params, pinnrep.adaloss.init_state(
-        1, 4, torch.float32, pinnrep.device))
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), torch.float32,
+        pinnrep.device))
     generator = torch.Generator(device=pinnrep.device).manual_seed(seed)
     losses = []
     for _ in range(steps):
@@ -323,3 +324,145 @@ def test_port_adam_is_torch_adams_eager_arithmetic_on_the_card(cuda):
         ours.step()
     for p, q in zip(ps, qs):
         assert torch.equal(p, q)
+
+
+# --- integrals and the ODE solver surface on the card ---------------------------
+
+def _oscillator_loss(cuda, strategy=None):
+    """NNODE's objective for u1' = u2, u2' = -u1 on the card ->
+    (loss, initial parameters)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.solvers.ode import build_ode_loss
+
+    prob = npde.ODEProblem(lambda u, p, t: [u[1], -u[0]],
+                           np.array([1.0, 0.0]), (0.0, 1.0))
+    alg = npde.NNODE(npde.mlp([1, 16, 2]), strategy=strategy)
+    return build_ode_loss(prob, alg, dt=0.05, device=cuda)[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["grid", "quadrature", "stochastic"])
+def test_captured_nnode_step_matches_eager_steps(cuda, strategy):
+    """`solve_ode` trains a bare problem (no `PINNRepresentation`) through
+    the captured graph: 8 steps equal 8 eager `make_step` steps from the
+    same parameters and generator seed (rtol 1e-6)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.solvers.ode import _SimpleProblem
+
+    strategies = {"grid": None, "quadrature": npde.QuadratureTraining(),
+                  "stochastic": npde.StochasticTraining(64)}
+    loss, theta0 = _oscillator_loss(cuda, strategies[strategy])
+    bare = _SimpleProblem(loss, theta0)
+    step = npde.make_step(bare.loss, npde.adam(1e-2))
+    ones = {k: torch.ones(n, device=cuda) for k, n in
+            (("pde_weights", 0), ("bc_weights", 0), ("additional_weights", 1))}
+    carry = step.init(theta0, ones)
+    generator = torch.Generator(device=cuda).manual_seed(3)
+    eager = []
+    for _ in range(8):
+        carry, (value, _) = step(carry, generator)
+        eager.append(float(value))
+    res = npde.solve(bare, npde.adam(1e-2), maxiters=8, inner_steps=4,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 7
+    np.testing.assert_allclose(res.history, eager[3::4], rtol=1e-6)
+    for k, v in carry[0].items():
+        torch.testing.assert_close(res.u[k], v.detach(), rtol=1e-6, atol=1e-7)
+    assert all(v.is_cuda for v in res.u.values())
+
+
+@pytest.mark.cuda
+def test_solve_ode_runs_on_the_card_by_default(cuda):
+    import neuralpde_tpu_torch as npde
+
+    prob = npde.ODEProblem(lambda u, p, t: -u, 1.0, (0.0, 1.0),
+                           analytic=lambda u0, p, t: np.exp(-t))
+    sol = npde.solve_ode(prob, npde.NNODE(npde.mlp([1, 12, 1]),
+                                          npde.adam(0.05)),
+                         dt=0.05, maxiters=600, abstol=1e-12, inner_steps=25)
+    assert all(v.is_cuda for v in sol.original.u.values())
+    assert sol.original.aux["cuda_graph"]["replays"] == 599
+    assert sol.errors["l2"] < 0.05 and sol(0.5).is_cuda
+
+
+@pytest.mark.cuda
+def test_complex_nnode_trains_through_the_graph(cuda):
+    """u' = i u with complex64 parameters: the step (complex matmuls and
+    tanh, `Adam` on complex leaves) is captured and replayed."""
+    import neuralpde_tpu_torch as npde
+
+    prob = npde.ODEProblem(lambda u, p, t: 1j * u, np.complex64(1.0),
+                           (0.0, 2.0))
+    net = npde.mlp([1, 16, 1], dtype=torch.complex64)
+    real = npde.mlp([1, 16, 1])
+    real.reset_parameters(torch.Generator().manual_seed(0))
+    init = {k: v.detach().to(torch.complex64)
+            for k, v in real.named_parameters()}
+    sol = npde.solve_ode(prob, npde.NNODE(net, npde.adam(0.02),
+                                          init_params=init),
+                         dt=0.05, maxiters=2000, abstol=1e-10, inner_steps=50)
+    assert sol.original.aux["cuda_graph"]["replays"] == 1999
+    ts = np.linspace(0, 2, 20, dtype=np.float32)
+    assert np.abs(sol(ts).cpu().numpy() - np.exp(1j * ts)).max() < 0.1
+
+
+@pytest.mark.cuda
+def test_integral_rule_tensors_live_on_the_card(cuda):
+    """An integro-differential loss reads its nodes and weights from the
+    device (a capture would fail on a copy from the host), stays float32,
+    and its captured steps follow eager ones."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.ops.quadrature import rule_tensors
+
+    x = npde.symbols("x")
+    u = npde.DepVar("u")
+    eq = npde.Eq((npde.Differential(x) ** 2)(u(x))
+                 + npde.Integral(x, 0.0, x)(u(x)),
+                 1.0 - npde.cos(x) - npde.sin(x))
+    bcs = [npde.Eq(u(0.0), 0.0), npde.Eq(npde.Differential(x)(u(0.0)), 1.0)]
+    system = npde.PDESystem(eq, bcs, [npde.Domain(x, npde.Interval(0, np.pi))],
+                            [x], [u(x)])
+    prob = npde.discretize(system, npde.PhysicsInformedNN(
+        npde.mlp([1, 16, 16, 1]), npde.StochasticTraining(256),
+        derivative="jet", integral_order=12, dtype=torch.float32, device=cuda))
+    nodes, weights = rule_tensors(1, 12, 1, torch.float32, cuda)
+    assert nodes.is_cuda and weights.is_cuda
+    assert rule_tensors(1, 12, 1, torch.float32, cuda)[0] is nodes
+    losses, theta, _ = _eager(prob, 6, seed=0)
+    before = tj.tanh_jet2.launches
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3)
+    assert tj.tanh_jet2.launches > before
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, losses[2::3], rtol=1e-6)
+    assert all(v.dtype == torch.float32 for v in res.u.values())
+
+
+@pytest.mark.cuda
+def test_quad_adapt_resolves_with_fresh_graphs(cuda):
+    """Each re-solve of ``quad_adapt`` captures its own graph; the counts
+    add up over the rounds."""
+    import warnings
+
+    import neuralpde_tpu_torch as npde
+
+    x = npde.symbols("x")
+    u = npde.DepVar("u")
+    eq = npde.Eq((npde.Differential(x) ** 2)(u(x)),
+                 -np.pi ** 2 * npde.sin(np.pi * x))
+    system = npde.PDESystem(eq, [npde.Eq(u(0.0), 0.0), npde.Eq(u(1.0), 0.0)],
+                            [npde.Domain(x, npde.Interval(0, 1))], [x], [u(x)])
+    strategy = npde.QuadratureTraining(order=3, reltol=0.05, abstol=1e-8,
+                                       maxiters=400)
+    chain = npde.Chain(npde.FourierFeatures(1, 16, sigma=6.0),
+                       npde.Dense(32, 24, torch.tanh), npde.Dense(24, 1))
+    prob = npde.discretize(system, npde.PhysicsInformedNN(
+        chain, strategy, derivative="jet", dtype=torch.float64, device=cuda))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = npde.solve(prob, npde.adam(1e-3), maxiters=300, inner_steps=50,
+                         quad_adapt=True, quad_adapt_rounds=1)
+    assert res.iterations == 600
+    assert res.aux["cuda_graph"]["captures"] == 2
+    assert res.aux["cuda_graph"]["replays"] == 598

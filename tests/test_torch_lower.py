@@ -116,12 +116,20 @@ def test_float32_constants_stay_float32():
 
 
 def test_integral_terms_wait_for_a_later_slice():
-    _, (tctx, _) = _contexts("jvp", torch.float64)
-    x, y, s = tpkg.symbols("x y s")
-    u = tpkg.DepVar("u")
-    eq = tpkg.Eq(tpkg.Integral(s, 0.0, 1.0)(u(s, y)), x)
-    with pytest.raises(NotImplementedError, match="quadrature slice"):
-        tpkg.build_residual_function(eq, [x, y], tctx)
+    """They waited for the quadrature slice; now an integral term lowers,
+    to the JAX package's values (tests/test_torch_integrals.py has the
+    other forms)."""
+    (jctx, jtheta), (tctx, ttheta) = _contexts("jvp", torch.float64)
+    eqs = []
+    for pkg in (jpkg, tpkg):
+        x, y, s = pkg.symbols("x y s")
+        u = pkg.DepVar("u")
+        eqs.append(pkg.Eq(x * u(x, y), pkg.Integral(s, 0.0, 1.0)(u(s, y))))
+    jres, tres, args = _residual_pair(*eqs, jctx, tctx)
+    cord = _cord(args, 17, np.random.default_rng(5))
+    want = np.asarray(jres(jnp.asarray(cord), jtheta))
+    got = tres(torch.tensor(cord), ttheta).detach().numpy()
+    assert rel_err(got, want) < 1e-10
 
 
 def test_get_argument_and_variables_match_jax():

@@ -149,9 +149,9 @@ def test_default_initial_parameters_are_seeded():
 
 
 def test_not_yet_ported_options_raise():
-    """Integral terms wait for the quadrature slice of the port, on the
-    dense and on the factorized path; both say so when the problem is
-    built."""
+    """Integral terms are ported: a problem with one builds and takes a step
+    on the dense and on the factorized path.  What still waits says so:
+    Gauss-Newton on the weak form."""
     x, s = tpkg.symbols("x s")
     u = tpkg.DepVar("u")
     system = tpkg.PDESystem(
@@ -160,9 +160,16 @@ def test_not_yet_ported_options_raise():
     for chain, strategy in ((tpkg.mlp([1, 8, 1]), tpkg.GridTraining(0.2)),
                             (tpkg.separable_mlp(1, (8,), 4),
                              tpkg.SeparableTraining(dx=0.2))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tpkg.discretize(system, tpkg.PhysicsInformedNN(chain, strategy,
-                                                           device="cpu"))
+        prob = tpkg.discretize(system, tpkg.PhysicsInformedNN(
+            chain, strategy, device="cpu"))
+        assert np.isfinite(tpkg.solve(prob, maxiters=1).objective)
+
+    class WeakTraining(tpkg.TrainingStrategy):
+        pass
+
+    prob.pinnrep.strategy = WeakTraining()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tpkg.build_residual_vector(prob.pinnrep)
 
 
 def test_import_leaves_jax_out():
@@ -175,7 +182,7 @@ def test_import_leaves_jax_out():
 
 
 def test_no_module_of_the_port_imports_jax():
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

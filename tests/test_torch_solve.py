@@ -1,6 +1,6 @@
 """The port's `solve` around the step: checkpoint/resume, `solve_hybrid`
-(Adam, then L-BFGS), profiling, logging, the default device, and what waits
-for the quadrature slice; on the CPU (the CUDA-graph path is in
+(Adam, then L-BFGS), profiling, logging, the default device, and
+`quad_adapt` where there is no rule to adapt; on the CPU (the CUDA-graph path is in
 tests/test_torch_cuda.py).
 
 A resumed run is compared bit for bit with one that never stopped.
@@ -169,9 +169,13 @@ def test_logger_gets_losses_and_weights_at_the_log_frequency(tmp_path,
 
 
 def test_quad_adapt_waits_for_the_quadrature_slice():
-    with pytest.raises(NotImplementedError, match="quadrature slice"):
-        tpkg.solve(_prob(tpkg.GridTraining(0.5)), maxiters=1,
-                   quad_adapt=True)
+    """It waited; now `quad_adapt` is accepted, and without an auto-refined
+    `QuadratureTraining` rule to check it changes nothing
+    (tests/test_torch_integrals.py has the cases where it acts)."""
+    plain = tpkg.solve(_prob(tpkg.GridTraining(0.5)), maxiters=2)
+    res = tpkg.solve(_prob(tpkg.GridTraining(0.5)), maxiters=2,
+                     quad_adapt=True)
+    assert res.iterations == 2 and res.history == plain.history
 
 
 def test_make_step_computes_component_gradients_for_the_schemes():
