@@ -11,14 +11,18 @@ stochastic batch of 2,097,152 points in microbatches of 32,768, Adam), the
 separable (SPINN) trainer of `bench.py`'s second throughput line and its
 accuracy recipes, matrix-free Gauss-Newton, the integro-differential path
 (integral terms by batched Gauss-Legendre quadrature, `QuadratureTraining`)
-and the ODE/DAE solver surface, in phases that each print their own lines,
-their seconds, and raise on failure:
+the ODE/DAE solver surface, and the trial-function zoo (FBPINN, KAN, DGM,
+a wrapped `torch.nn.Module`) with the variational formulations (hp-VPINN
+`WeakTraining`, Deep Ritz), in phases that each print their own lines, their
+seconds, and raise on failure:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
 2. build: the kernel library from `neuralpde_tpu_torch/csrc/` with nvcc;
 3. kernel vs plain: each kernel (tanh_jet2 forward, backward, jvp) against
    its plain PyTorch version at the shape each path below gives it, in
-   float32 and float64, and both times at the dense path's shape;
+   float32 and float64, and both times at the dense path's shape; after
+   each later phase the script refuses a shape that a kernel was launched
+   at and this phase did not check;
 4. card vs CPU: one loss and gradient of the dense bench problem at batch
    32,768, same parameters and points, on the card and the CPU (plain);
 5. dense main path: one warm-up step and 20 timed steps through
@@ -63,22 +67,43 @@ their seconds, and raise on failure:
     mlp([1, 64, 64, 2]) (default quadrature strategy, grid, forward-mode
     du/dt, parameter estimation from a dataset), `solve_dae`,
     `solve_ode_gauss_newton`, and `neural_adapter` from a trained 2-D
-    Poisson net to a smaller one.
+    Poisson net to a smaller one;
+20. zoo card vs CPU: loss and gradient norm of a second-order residual
+    through `FBPINN` (flat 1-D, multilevel 2-D), `kan([2,8,8,1], degree=5)`,
+    `DGM(2,1,24,3)` and `TorchModuleAdapter` on the card and the CPU, and
+    each net's Taylor rule against the nested-jvp engine on the card;
+21. FBPINN at the width of `examples/fbpinn_multiscale.py`: the 50-period
+    two-scale ODE (50 subdomains, 30,000 steps) beside a single MLP, and
+    the 2-D multi-scale Laplace problem with a five-level hierarchy of 341
+    local nets on 129^2 nodes (as many of its 30,000 steps as 20 s allow),
+    with a profile of a short solve;
+22. weak forms: the front problem of `scripts/measure_weak_accuracy_tpu.py`
+    (96^2 nodes, 10,000 steps each) in strong form, under `WeakTraining`
+    at ibp 0, 1, 2 and through `solve_weak_adaptive`; the smooth 2-D
+    problem; `solve_gauss_newton` on weak rows (ibp 1, and ibp 0 through
+    the `tanh_jet2_jvp` kernel);
+23. zoo solvers: `examples/burgers_dgm.py`'s `DeepGalerkin` run (1,500 of
+    its 5,000 steps) and the same configuration for all 5,000 on the
+    travelling wave, which has an exact solution; a
+    hard-constrained KAN on bench's 2-D Poisson; Deep Ritz with Monte-Carlo
+    energy.
 
-Phases 9 and 11 to 19 train through `solve`, which on the card runs each
+Phases 9, 11 to 19 and 21 to 23 train through `solve`, which on the card runs each
 kind of step once as it is, then captures it as a CUDA graph and replays
 it: a counter sees the eager step and the capture, not the replays.  So
-the JSON line of kernels sums the launches of the eager paths (phases 5, 6
-and 8) and of phase 18, which sets the counts to 0 just before each of its
-solves, reads them just after and requires the forward and backward kernels
-in them (its eager step and its capture); every other graph phase, like
+the JSON line of kernels sums the launches of the eager paths (phases 5, 6,
+8 and 20) and of phases 18 and 21 to 23, which set the counts to 0 just
+before each of their solves, read them just after and require the forward
+and backward kernels in them (the eager step and the capture) wherever the
+path takes second derivatives by Taylor mode; every other graph phase, like
 phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 
 Cuts against the recipes, each named where its phase prints: phase 11 runs
 1000 of the separable stage's 15,000 steps, phase 13 10,000 of the dense
-stage's 333,000.
+stage's 333,000, phase 21's Laplace problem the steps that 20 s allow of
+30,000, phase 23's Burgers example 1,500 of 5,000.
 """
 
 from __future__ import annotations
@@ -93,6 +118,8 @@ import numpy as np
 import torch
 
 HIDDEN = 64
+LAPLACE_LEVELS = (1, 2, 4, 8, 16)   # examples/fbpinn_multiscale.py, L = 4
+ZOO_LEVELS = (1, 2, 4)              # the multilevel FBPINN of phase 20
 BATCH = 2_097_152          # bench.py's BATCH
 MICROBATCH = 32_768        # bench.py's MICROBATCH
 STEPS = 20
@@ -102,13 +129,26 @@ KERNEL_SHAPE = (HIDDEN, MICROBATCH)   # the dense path's; timed
 CHECK_SHAPES = (KERNEL_SHAPE,
                 (HIDDEN, 16_384),    # separable main path (phase 8)
                 (24, 33),            # Gauss-Newton (phase 10)
+                # a separable net's two end points of an axis (phases 7-11)
+                (HIDDEN, 2), (24, 2),
                 (HIDDEN, 256),       # Allen-Cahn stage (phase 11)
                 (HIDDEN, 8_192),     # dense causal (13), to accuracy (14),
                                      # the integro-differential solve (18)
                 (HIDDEN, 1_024),     # their boundary batches
                 # the nodes of an auto-refined QuadratureTraining() rule in
                 # phase 18: 8 per panel, panels doubling up to its budget
-                *((HIDDEN, 8 * 2 ** k) for k in range(7)))
+                *((HIDDEN, 8 * 2 ** k) for k in range(7)),
+                # the trial-function zoo and the weak forms (phases 20-23):
+                # every level of the Laplace FBPINN, (J, hidden, nodes)
+                *((j * j, 16, 129 * 129) for j in LAPLACE_LEVELS),
+                # FBPINN card-vs-CPU: flat on 32 nodes, three levels on 32^2
+                (4, 16, 32), *((j * j, 16, 1_024) for j in ZOO_LEVELS),
+                (24, 512), (24, 1_024),   # DGM: Burgers batch, card-vs-CPU
+                # KAN (tanh of its input, then of each hidden layer): the
+                # Poisson batch, card-vs-CPU
+                (2, 8_192), (8, 8_192), (2, 1_024), (8, 1_024),
+                (HIDDEN, 9_216),     # the weak grid, 96^2 nodes
+                (16, 66))            # Gauss-Newton on ibp=0 rows: 6 x 11 nodes
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
        torch.float64: dict(rtol=1e-12, atol=1e-12)}
 CARD_VS_CPU_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
@@ -137,7 +177,7 @@ ADAPTIVE_STEPS = 300
 ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
-COUNTED_PHASES = (5, 6, 8, 18)   # the kernels line sums their launches
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23)   # summed in the kernels line
 INTEGRAL_ORDER = 20         # nodes of each point's integral (phase 18)
 IDE_BATCH = 8_192
 IDE_STEPS = 3_000
@@ -158,6 +198,30 @@ ADAPTER_LIMIT = 0.05
 ODE_GN_L2_LIMIT = 1e-3
 JAX_RECORD = {"poisson_spinn_rel_l2": 1.44e-3, "gn_rel_l2": 2.80e-5,
               "allen_cahn_rel_l2": 0.0457}   # BENCH_r05.json, TPU v5e
+ZOO_GRID = 1.0 / 31             # 32 nodes an axis in phase 20
+FBPINN_STEPS = 30_000           # examples/fbpinn_multiscale.py's budget
+FBPINN_BLOCK = 500
+FBPINN_ODE_LIMIT = 0.05
+# the example's rel L2 in the JAX package on a TPU (docs/src/examples/
+# fbpinn_multiscale.md): FBPINN, single MLP
+FBPINN_ODE_JAX = (0.0015, 0.71)
+LAPLACE_CAP_S = 20.0
+LAPLACE_BLOCK = 50
+WEAK_STEPS = 10_000
+WEAK_BLOCK = 100
+WEAK_ROUNDS = (3_400, 3_300, 3_300)
+# the JAX package's own tests' bounds: tests/test_weak.py:190 (rel L2 of the
+# smooth 2-D problem) and :313,315 (Gauss-Newton on weak rows: rel L2,
+# objective), tests/test_coverage2.py:162 (DGM travelling wave, maximum
+# error), tests/test_kan.py:84, tests/test_ritz.py:69
+WEAK_SMOOTH_LIMIT = 0.2
+WEAK_GN_LIMITS = (1e-3, 1e-4)
+DGM_LIMIT = 0.02
+DGM_STEPS = 5_000               # examples/burgers_dgm.py's budget
+DGM_EXAMPLE_STEPS = 1_500       # of it on the example's own problem, which
+                                # has no exact solution to be held to
+KAN_LIMIT = 0.05
+RITZ_LIMIT = 5e-2
 
 
 def phase_device() -> tuple[str, str]:
@@ -1163,8 +1227,7 @@ def phase_integro_differential(card: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = tj.launch_counts()
-        for k, n in counts.items():
-            total[k] = total.get(k, 0) + n
+        _add(total, counts)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         pred = prob.pinnrep.phi(xs[None, :], npde.depvar_params(res.u))[0]
         rel = float(np.linalg.norm(pred.cpu().numpy() - np.sin(xs))
@@ -1174,10 +1237,6 @@ def phase_integro_differential(card: str) -> dict:
         if quadrature:
             reports = strategy.validate_trained(res.u, warn=False)
             nodes = 8 * reports[0]["panels"]
-            if (HIDDEN, nodes) not in CHECK_SHAPES:
-                raise AssertionError(
-                    f"integro-differential: the refined rule has {nodes} "
-                    "nodes, a shape phase 3 did not check the kernels at")
             work = (f"{nodes} nodes ({reports[0]['panels']} panels of 8, "
                     f"check on the trained solution ok={reports[0]['ok']}) x "
                     f"{INTEGRAL_ORDER} integrand columns each")
@@ -1369,6 +1428,433 @@ def phase_ode_surface(card: str) -> None:
         raise AssertionError(f"adapter: rel difference {rel}")
 
 
+def _add(total: dict, counts: dict) -> dict:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _cpu_init(prob) -> dict:
+    """A problem's initial parameters under the module's own names, on the
+    CPU: `init_params` for the same problem on another device."""
+    return {k[len("depvar."):]: v.cpu() for k, v in prob.init_params.items()}
+
+
+def phase_zoo_card_vs_cpu(card: str) -> dict:
+    """Each trial function of the zoo under a second-order residual on a
+    32-node grid an axis: the card against the CPU (same parameters), and
+    the Taylor rule against the nested-jvp engine on the card."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_1d_system, poisson_2d_system
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from torch import nn
+
+    zoo = {
+        "FBPINN([(0,1)], subdivisions=4, hidden=(16,))": (
+            poisson_1d_system, lambda: npde.FBPINN(
+                [(0, 1)], subdivisions=4, hidden=(16,)), True),
+        "FBPINN([(0,1)]*2, levels=[1,2,4], hidden=(16,))": (
+            poisson_2d_system, lambda: npde.FBPINN(
+                [(0, 1)] * 2, levels=list(ZOO_LEVELS), hidden=(16,)), True),
+        "kan([2,8,8,1], degree=5)": (
+            poisson_2d_system, lambda: npde.kan([2, 8, 8, 1], degree=5), True),
+        "DGM(2,1,24,3)": (
+            poisson_2d_system, lambda: npde.DGM(2, 1, 24, 3), True),
+        "TorchModuleAdapter(Linear-Tanh-Linear-Tanh-Linear, width 64)": (
+            poisson_2d_system, lambda: npde.TorchModuleAdapter(nn.Sequential(
+                nn.Linear(2, HIDDEN), nn.Tanh(), nn.Linear(HIDDEN, HIDDEN),
+                nn.Tanh(), nn.Linear(HIDDEN, 1)), 2, 1), False),
+    }
+    total: dict = {}
+    for name, (system, make, ruled) in zoo.items():
+        net = make()
+        if net.has_taylor_rule != ruled:
+            raise AssertionError(f"zoo ({name}): has_taylor_rule "
+                                 f"{net.has_taylor_rule}")
+
+        def build(device, mode, init):
+            return npde.discretize(system(), npde.PhysicsInformedNN(
+                net, npde.GridTraining(ZOO_GRID), derivative=mode,
+                dtype=torch.float32, device=device, init_params=init,
+                matmul_precision="highest"))
+
+        cpu = build("cpu", "jet", None)
+        init = _cpu_init(cpu)
+        want = _loss_and_grad_norm(cpu)
+        tj.reset_launch_counts()
+        got = _loss_and_grad_norm(build("cuda", "jet", init))
+        torch.cuda.synchronize()
+        counts = tj.launch_counts()
+        _add(total, counts)
+        nested = _loss_and_grad_norm(build("cuda", "jvp", init))
+        d_cpu = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        d_jvp = [abs(g - w) / abs(w) for g, w in zip(got, nested)]
+        print(f"[zoo-card-vs-cpu] {name}, GridTraining(1/31), jet, f32 "
+              f"highest: loss {got[0]:.9g} vs CPU {want[0]:.9g} (rel "
+              f"{d_cpu[0]:.2e}), grad norm {got[1]:.9g} vs {want[1]:.9g} (rel "
+              f"{d_cpu[1]:.2e}; limits {CARD_VS_CPU_RTOL}); Taylor rule vs "
+              f"nested jvp on the card: loss rel {d_jvp[0]:.2e}, grad norm "
+              f"rel {d_jvp[1]:.2e} (limit {TRANSFORM_RTOL}); launches "
+              f"{counts}; {card}")
+        if not all(map(math.isfinite, (*got, *want, *nested))):
+            raise AssertionError(f"zoo ({name}): non-finite values")
+        if (d_cpu[0] > CARD_VS_CPU_RTOL["loss"]
+                or d_cpu[1] > CARD_VS_CPU_RTOL["grad_norm"]):
+            raise AssertionError(f"zoo ({name}): the card disagrees with "
+                                 "the CPU")
+        if max(d_jvp) > TRANSFORM_RTOL:
+            raise AssertionError(f"zoo ({name}): the Taylor rule disagrees "
+                                 "with nested jvp")
+        if ruled:
+            _require_launched(f"zoo ({name})", counts, "tanh_jet2_forward",
+                              "tanh_jet2_backward")
+        elif any(counts.values()):
+            raise AssertionError(f"zoo ({name}): launches without a Taylor "
+                                 f"rule: {counts}")
+    return total
+
+
+def _timed_solve(prob, optimizer, maxiters: int, block: int, *,
+                 cap_s: float | None = None, **kw):
+    """`solve` with the launch counts set to 0 just before and read just
+    after: ``(result, seconds, ms per replayed step, counts, peak GiB)``;
+    the step time is taken over the blocks after the first (which holds
+    the eager step and the capture).  ``cap_s`` ends the run at the first
+    block boundary past that many seconds."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    stamps = []
+
+    def stamp(it, loss, aux):
+        torch.cuda.synchronize()
+        stamps.append((it, time.perf_counter()))
+        return cap_s is not None and stamps[-1][1] - t0 > cap_s
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tj.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = npde.solve(prob, optimizer, maxiters=maxiters, inner_steps=block,
+                     callback=stamp, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = tj.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = stamps[-1][0] - stamps[0][0]
+    ms = 1e3 * (stamps[-1][1] - stamps[0][1]) / steps if steps else math.nan
+    return res, seconds, ms, counts, peak_gib
+
+
+def _require_counts(what: str, counts: dict, launched: bool) -> None:
+    """A path that takes second derivatives by Taylor mode launches the
+    forward and backward kernels; one that takes none launches nothing."""
+    if launched:
+        _require_launched(what, counts, "tanh_jet2_forward",
+                          "tanh_jet2_backward")
+    elif any(counts.values()):
+        raise AssertionError(f"{what}: launches on a path without second "
+                             f"derivatives: {counts}")
+
+
+def phase_fbpinn(card: str) -> dict:
+    """`examples/fbpinn_multiscale.py` at its width: the two-scale ODE with
+    50 subdomains beside a single MLP, then the five-level Laplace
+    hierarchy under a cap of `LAPLACE_CAP_S` seconds."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy as acc
+
+    total: dict = {}
+    rels = {}
+    for name, net in (
+            ("FBPINN([(-2pi,2pi)], subdivisions=50, hidden=(16,))",
+             acc.two_scale_fbpinn()),
+            ("mlp([1,64,64,64,1])", npde.mlp([1, 64, 64, 64, 1]))):
+        prob = acc.two_scale_ode(net)
+        res, seconds, ms, counts, peak = _timed_solve(
+            prob, npde.adam(1e-3), FBPINN_STEPS, FBPINN_BLOCK)
+        _add(total, counts)
+        rels[name] = acc.two_scale_rel_l2(prob, res.u)
+        print(f"[fbpinn] two-scale ODE, 50 fast periods, tanh(w2 x)*NN, "
+              f"GridTraining(4pi/1200), Adam(1e-3) f32, {name}: "
+              f"{res.iterations} steps in {seconds:.2f} s, {ms:.4f} ms/step "
+              f"replayed; loss {res.history[0]:.5g} -> {res.objective:.5g}; "
+              f"rel L2 on 4001 points {rels[name]:.4e}; peak {peak:.3f} GiB; "
+              f"{_require_graph(name, res)}; launches {counts}; {card}")
+        _require_falling(f"fbpinn ode ({name})", res.history)
+        _require_counts(f"fbpinn ode ({name})", counts, False)
+    fb, single = rels.values()
+    print(f"[fbpinn] two-scale ODE rel L2: FBPINN {fb:.4e} (limit "
+          f"{FBPINN_ODE_LIMIT} and below the MLP's), single MLP {single:.4e}; "
+          f"the JAX package on a TPU: {FBPINN_ODE_JAX[0]} and "
+          f"{FBPINN_ODE_JAX[1]}")
+    if not (fb < FBPINN_ODE_LIMIT and fb < single):
+        raise AssertionError(f"fbpinn ode: rel L2 {fb} (MLP {single})")
+
+    prob = acc.multiscale_laplace()
+    net = prob.pinnrep.phi.module.base
+    nodes = 129 * 129
+    if net.level_subs != [[j, j] for j in LAPLACE_LEVELS]:
+        raise AssertionError(f"fbpinn laplace: levels {net.level_subs}")
+    res, seconds, ms, counts, peak = _timed_solve(
+        prob, npde.adam(1e-3), FBPINN_STEPS, LAPLACE_BLOCK,
+        cap_s=LAPLACE_CAP_S)
+    _add(total, counts)
+    rel = acc.multiscale_laplace_rel_l2(prob, res.u)
+    print(f"[fbpinn] 2-D multi-scale Laplace L=4, FBPINN levels "
+          f"[1,2,4,8,16] ({net.n_subdomains} local nets of hidden 16), hard "
+          f"constraint, GridTraining(1/128) ({nodes} nodes), jet, Adam(1e-3) "
+          f"f32 highest: {res.iterations} of the example's {FBPINN_STEPS} "
+          f"steps in {seconds:.2f} s (cap {LAPLACE_CAP_S} s), {ms:.3f} "
+          f"ms/step replayed, {nodes * 1e3 / ms:.6g} nodes/s; loss "
+          f"{res.history[0]:.5g} -> {res.objective:.5g}; rel L2 on 257^2 "
+          f"{rel:.4e}; peak {peak:.3f} GiB; {_require_graph('laplace', res)}; "
+          f"launches counted (eager step and capture) {counts}; {card}")
+    _require_falling("fbpinn laplace", res.history)
+    _require_counts("fbpinn laplace", counts, True)
+
+    _profile_solve(prob, npde.adam(1e-3), 20, 10, ms / 1e3)
+    return total
+
+
+def phase_weak(card: str) -> dict:
+    """The front problem at 96^2 nodes: strong form, `WeakTraining` at ibp
+    0, 1 and 2, and `solve_weak_adaptive`; then the smooth 2-D problem and
+    Gauss-Newton on weak rows, each at the bound of the JAX package's own
+    test."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy as acc
+    from neuralpde_tpu_torch.gauss_newton import _EAGER_STEPS
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    total: dict = {}
+    system = acc.front_system()
+    nodes = (acc.FRONT_MESH["elements"] * acc.FRONT_MESH["quad"]) ** 2
+
+    def weak(ibp):
+        return npde.WeakTraining(ibp=ibp, **acc.FRONT_MESH)
+
+    runs = {"strong GridTraining(1/95)": (npde.GridTraining(1.0 / 95), True),
+            "WeakTraining ibp=0": (weak(0), True),
+            "WeakTraining ibp=1": (weak(1), False),
+            "WeakTraining ibp=2": (weak(2), False)}
+    for name, (strategy, launched) in runs.items():
+        disc = acc.front_discretization(strategy)
+        prob = npde.discretize(system, disc)
+        res, seconds, ms, counts, peak = _timed_solve(
+            prob, npde.adam(2e-3), WEAK_STEPS, WEAK_BLOCK)
+        _add(total, counts)
+        rel = acc.front_rel_l2(disc.phi, res.u)
+        print(f"[weak] front tanh(60(x-0.7)) sin(pi y), mlp([2,{HIDDEN},"
+              f"{HIDDEN},1]) jet, E=8 K=8 q=12 ({nodes} nodes), Adam(2e-3) "
+              f"f32, {name}: {ms:.4f} ms/step replayed, {res.iterations} "
+              f"steps in {seconds:.2f} s; loss {res.history[0]:.5g} -> "
+              f"{res.objective:.5g}; rel L2 on 201^2 {rel:.4e}; peak "
+              f"{peak:.3f} GiB; {_require_graph(name, res)}; launches "
+              f"counted (eager step and capture) {counts}; {card}")
+        _require_falling(f"weak ({name})", res.history)
+        _require_counts(f"weak ({name})", counts, launched)
+
+    disc = acc.front_discretization(weak(1))
+    tj.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ares = npde.solve_weak_adaptive(
+        system, disc, npde.adam(2e-3), rounds=len(WEAK_ROUNDS),
+        maxiters=list(WEAK_ROUNDS), mode="hp", inner_steps=WEAK_BLOCK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = tj.launch_counts()
+    _add(total, counts)
+    rel = acc.front_rel_l2(ares.prob.pinnrep.phi, ares.u)
+    rounds = []
+    for strat, r in zip(ares.strategies, ares.results):
+        def per_axis(value, count):
+            return {ax: (count(v) if np.ndim(v) else int(v))
+                    for ax, v in value.items()} if isinstance(value, dict) \
+                else int(value)
+
+        rounds.append({
+            "elements": per_axis(strat.elements, lambda e: len(e) - 1),
+            "n_test": per_axis(strat.n_test,
+                               lambda k: [int(i) for i in np.asarray(k)]),
+            "steps": r.iterations, "objective": round(r.objective, 6),
+            "graph": _require_graph("weak adaptive", r)})
+    print(f"[weak] the same front, solve_weak_adaptive(rounds=3, mode='hp') "
+          f"from the ibp=1 mesh, {ares.iterations} steps in {seconds:.2f} s, "
+          f"{1e3 * seconds / ares.iterations:.4f} ms/step with refinement and "
+          f"captures; rel L2 on 201^2 {rel:.4e}; per round {rounds}; launches "
+          f"{counts}; {card}")
+    _require_falling("weak adaptive", ares.history)
+    _require_counts("weak adaptive", counts, False)
+    if len(ares.strategies) != len(WEAK_ROUNDS):
+        raise AssertionError("weak adaptive: a round is missing")
+
+    # the smooth 2-D problem of the JAX package's test, at its bound
+    disc = npde.PhysicsInformedNN(
+        npde.mlp([2, 16, 16, 1]), npde.WeakTraining(elements=4, n_test=6,
+                                                     ibp=1))
+    prob = npde.discretize(acc.poisson_2d_system(), disc)
+    res, seconds, ms, counts, _ = _timed_solve(prob, npde.adam(2e-2), 1200, 50)
+    rel = acc.poisson_2d_rel_l2(disc.phi, res.u)
+    print(f"[weak] smooth 2-D Poisson, mlp([2,16,16,1]), WeakTraining("
+          f"elements=4, n_test=6, ibp=1), Adam(2e-2) f32: {res.iterations} "
+          f"steps in {seconds:.2f} s, {ms:.4f} ms/step; loss "
+          f"{res.history[0]:.5g} -> {res.objective:.5g}; rel L2 on 21^2 "
+          f"{rel:.4e} (limit {WEAK_SMOOTH_LIMIT}); "
+          f"{_require_graph('weak smooth', res)}; {card}")
+    if not rel < WEAK_SMOOTH_LIMIT:
+        raise AssertionError(f"weak smooth: rel L2 {rel}")
+
+    # Gauss-Newton on weak rows (1-D Poisson), its inner CG step captured
+    disc = npde.PhysicsInformedNN(
+        npde.mlp([1, 16, 16, 1]), npde.WeakTraining(elements=6, n_test=8,
+                                                     ibp=1))
+    prob = npde.discretize(acc.poisson_1d_system(), disc)
+    t0 = time.perf_counter()
+    res = npde.solve_gauss_newton(prob, maxiters=60, cg_iters=100)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rel = acc.poisson_1d_rel_l2(disc.phi, res.u)
+    graph = res.aux["cuda_graph"]
+    print(f"[weak] solve_gauss_newton on weak rows, 1-D Poisson, mlp([1,16,"
+          f"16,1]), WeakTraining(elements=6, n_test=8, ibp=1), f32 highest, "
+          f"LM with 100 CG iterations: {res.iterations} outer iterations in "
+          f"{seconds:.2f} s ({seconds / max(res.iterations, 1):.3f} s each); "
+          f"objective {res.history[0]:.4e} -> {res.objective:.4e} (limit "
+          f"{WEAK_GN_LIMITS[1]}); rel L2 {rel:.4e} (limit "
+          f"{WEAK_GN_LIMITS[0]}); inner CG step: {_EAGER_STEPS} eager steps "
+          f"an outer iteration, {graph['captures']} graph captures, "
+          f"{graph['replays']} replays; {card}")
+    if not (rel < WEAK_GN_LIMITS[0] and res.objective < WEAK_GN_LIMITS[1]):
+        raise AssertionError(f"weak gauss-newton: rel L2 {rel}, objective "
+                             f"{res.objective}")
+    if graph["captures"] < 1 or graph["replays"] < graph["captures"] * (
+            100 - _EAGER_STEPS):
+        raise AssertionError("weak gauss-newton: the inner step was not "
+                             "captured")
+
+    # the same with ibp=0 rows: second derivatives stay on the net, so J v
+    # is the jvp of a Taylor-mode residual (the tanh_jet2_jvp kernel)
+    disc = npde.PhysicsInformedNN(
+        npde.mlp([1, 16, 16, 1]), npde.WeakTraining(elements=6, n_test=8,
+                                                     ibp=0),
+        derivative="jet")
+    prob = npde.discretize(acc.poisson_1d_system(), disc)
+    tj.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = npde.solve_gauss_newton(prob, maxiters=20, cg_iters=100,
+                                  damping=1.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = tj.launch_counts()
+    _add(total, counts)
+    print(f"[weak] solve_gauss_newton on ibp=0 weak rows (jet), the same "
+          f"problem, damping 1: {res.iterations} outer iterations in "
+          f"{seconds:.2f} s; objective {res.history[0]:.4e} -> "
+          f"{res.objective:.4e}; launches counted (eager steps and "
+          f"captures) {counts}; {card}")
+    _require_launched("weak gauss-newton ibp=0", counts, "tanh_jet2_forward",
+                      "tanh_jet2_jvp", "tanh_jet2_backward")
+    if not res.objective < 1e-2 * res.history[0]:
+        raise AssertionError(f"weak gauss-newton ibp=0: objective "
+                             f"{res.history[0]} -> {res.objective}")
+    return total
+
+
+def phase_zoo_solvers(card: str) -> dict:
+    """`examples/burgers_dgm.py` (and its configuration on the travelling
+    wave, which has an exact solution), a KAN on bench's Poisson problem,
+    and Deep Ritz with Monte-Carlo energy."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy as acc
+    from neuralpde_tpu_torch.nn import identity, tanh
+
+    total: dict = {}
+
+    def dgm():
+        # the example's discretization; the port's `identity` stands for
+        # its ``lambda z: z`` so that the output layer has a Taylor rule
+        return npde.DeepGalerkin(
+            2, 1, 24, 3, tanh, tanh, identity,
+            npde.QuasiRandomTraining(512, sampling_alg="sobol"),
+            adaptive_loss=npde.MiniMaxAdaptiveLoss(100), derivative="jet")
+
+    for name, system, steps, exact in (
+            (f"examples/burgers_dgm.py (nu 0.05, -sin(pi x); cut to "
+             f"{DGM_EXAMPLE_STEPS} of its {DGM_STEPS} steps)",
+             acc.burgers_dgm_example(), DGM_EXAMPLE_STEPS, False),
+            ("the travelling wave c - a tanh(a(x - ct)/2nu)",
+             acc.burgers_wave_system(), DGM_STEPS, True)):
+        disc = dgm()
+        prob = npde.discretize(system, disc)
+        res, seconds, ms, counts, peak = _timed_solve(
+            prob, npde.adam(1e-2), steps, 25)
+        _add(total, counts)
+        line = (f"[zoo-solvers] DeepGalerkin(2,1,24,3,tanh,tanh,identity), "
+                f"QuasiRandomTraining(512, 'sobol'), MiniMaxAdaptiveLoss(100)"
+                f", jet, Adam(1e-2) f32, {name}: {res.iterations} steps in "
+                f"{seconds:.2f} s, {ms:.4f} ms/step replayed; loss "
+                f"{res.history[0]:.5g} -> {res.objective:.5g}; peak "
+                f"{peak:.3f} GiB; {_require_graph(name, res)}; "
+                f"launches counted (eager steps and captures) {counts}")
+        _require_falling(f"dgm ({name})", res.history)
+        _require_counts(f"dgm ({name})", counts, True)
+        if res.aux["cuda_graph"]["captures"] != 2:
+            raise AssertionError(f"dgm ({name}): expected the plain and the "
+                                 "reweighting step captured")
+        if exact:
+            err = acc.burgers_wave_max_error(disc.phi, res.u)
+            line += f"; maximum error on 21^2 {err:.4e} (limit {DGM_LIMIT})"
+            if not err < DGM_LIMIT:
+                raise AssertionError(f"dgm: maximum error {err}")
+        print(f"{line}; {card}")
+        if not exact:
+            _profile_solve(prob, npde.adam(1e-2), 10, 5, ms / 1e3)
+
+    # bench's Poisson problem under time_to_l2_hard's hard constraint: with
+    # penalized boundary values this KAN stays at rel L2 0.6-0.8 after 2,000
+    # steps (0.42 after 6,000) on an H100, at any of four step sizes
+    disc = npde.PhysicsInformedNN(
+        npde.Transformed(npde.kan([2, 8, 8, 1], degree=5), acc._hard_box),
+        npde.StochasticTraining(ADAPTIVE_BATCH,
+                                bcs_points=ADAPTIVE_BATCH // 8),
+        derivative="jet", dtype=torch.float32)
+    prob = npde.discretize(acc.poisson_2d_system(), disc)
+    res, seconds, ms, counts, peak = _timed_solve(prob, npde.adam(2e-2),
+                                                  2000, 100)
+    _add(total, counts)
+    rel = acc.poisson_2d_rel_l2(disc.phi, res.u, 51)
+    print(f"[zoo-solvers] x(1-x)y(1-y) * kan([2,8,8,1], degree=5), bench's "
+          f"2-D Poisson, StochasticTraining({ADAPTIVE_BATCH}, bcs_points="
+          f"{ADAPTIVE_BATCH // 8}), jet, Adam(2e-2) f32: {res.iterations} "
+          f"steps in {seconds:.2f} s, {ms:.4f} ms/step replayed; loss "
+          f"{res.history[0]:.5g} -> {res.objective:.5g}; rel L2 on 51^2 "
+          f"{rel:.4e} (limit {KAN_LIMIT}); peak {peak:.3f} GiB; "
+          f"{_require_graph('kan', res)}; launches counted {counts}; {card}")
+    _require_counts("kan", counts, True)
+    if not rel < KAN_LIMIT:
+        raise AssertionError(f"kan: rel L2 {rel}")
+    _profile_solve(prob, npde.adam(2e-2), 20, 10, ms / 1e3)
+
+    prob = acc.ritz_poisson_2d(npde.StochasticTraining(4096))
+    res, seconds, ms, counts, peak = _timed_solve(prob, npde.adam(3e-3),
+                                                  3000, 100)
+    rel = acc.poisson_2d_rel_l2(prob.pinnrep.phi, res.u, 65, scale=1.0)
+    print(f"[zoo-solvers] DeepRitz, -Lap u = 2 pi^2 sin sin, hard-constrained "
+          f"mlp([2,32,32,1]), StochasticTraining(4096) Monte-Carlo energy, "
+          f"Adam(3e-3) f32: {res.iterations} steps in {seconds:.2f} s, "
+          f"{ms:.4f} ms/step replayed; energy {res.history[0]:.5g} -> "
+          f"{float(res.aux['energy']):.5g} (minimum -pi^2/4 = "
+          f"{-np.pi ** 2 / 4:.5g}); rel L2 on 65^2 {rel:.4e} (limit "
+          f"{RITZ_LIMIT}); {_require_graph('ritz', res)}; launches {counts}; "
+          f"{card}")
+    _require_counts("ritz", counts, False)
+    if not rel < RITZ_LIMIT:
+        raise AssertionError(f"ritz: rel L2 {rel}")
+    return total
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1381,6 +1867,7 @@ def main() -> int:
     card = f"card: {smi}"
     _timed("build", phase_build)
     kernels = _timed("kernel", phase_kernels, card)
+    from neuralpde_tpu_torch.kernels.tanh_jet import LAUNCH_SHAPES
     runs = {4: lambda: phase_card_vs_cpu(),
             5: lambda: phase_main_path(card),
             6: lambda: phase_transforms(card),
@@ -1396,13 +1883,23 @@ def main() -> int:
             16: lambda: phase_checkpoint(card),
             17: lambda: phase_integrals_card_vs_cpu(),
             18: lambda: phase_integro_differential(card),
-            19: lambda: phase_ode_surface(card)}
+            19: lambda: phase_ode_surface(card),
+            20: lambda: phase_zoo_card_vs_cpu(card),
+            21: lambda: phase_fbpinn(card),
+            22: lambda: phase_weak(card),
+            23: lambda: phase_zoo_solvers(card)}
     totals: dict = {}
     for number, run in runs.items():
+        LAUNCH_SHAPES.clear()
         counts = _timed(f"phase {number}", run)
+        unchecked = sorted({shape for _, shape in LAUNCH_SHAPES}
+                           - set(CHECK_SHAPES))
+        if unchecked:
+            raise AssertionError(
+                f"phase {number} launched kernels at {unchecked}, shapes at "
+                "which phase 3 did not hold them against their plain versions")
         if number in COUNTED_PHASES:
-            for k, n in counts.items():
-                totals[k] = totals.get(k, 0) + n
+            _add(totals, counts)
     for k in kernels:
         k["launches"] = totals[k["name"]]
     print(json.dumps({"kernels": [

@@ -5,8 +5,10 @@ QuasiRandom, ResidualAdaptive and Causal training, Taylor-mode
 derivatives, the adaptive loss weights, `solve` replaying a CUDA graph of
 its step on the card, checkpoint/resume, Adam then L-BFGS), separable
 (SPINN) training, matrix-free Gauss-Newton, quadrature (integral terms,
-`QuadratureTraining`) and the ODE/DAE solver surface (`solve_ode`,
-`solve_dae`, `neural_adapter`) for one NVIDIA H100, with
+`QuadratureTraining`), the ODE/DAE solver surface (`solve_ode`,
+`solve_dae`, `neural_adapter`), the trial-function zoo (`FBPINN`, `kan`,
+`DGM`, `TorchModuleAdapter`) and the variational formulations (hp-VPINN
+`WeakTraining` with `refine_weak`, `DeepRitz`) for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
@@ -27,6 +29,10 @@ from .nn.core import (
     Transformed, glorot_normal, glorot_uniform, mlp,
 )
 from .nn.separable import SeparableNet, separable_mlp
+from .nn.adapters import TorchModuleAdapter
+from .nn.dgm import DGM, DGMLSTMLayer
+from .nn.fbpinn import FBPINN
+from .nn.kan import KANLayer, kan
 from .ops.derivatives import (
     DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
 )
@@ -34,6 +40,7 @@ from .strategies import (
     CausalTraining, GridTraining, QuadratureTraining, QuasiRandomTraining,
     ResidualAdaptiveTraining, StochasticTraining, TrainingStrategy,
     WeightedIntervalTraining, generate_training_sets, get_bounds,
+    get_loss_function,
 )
 from .adaptive import (
     AbstractAdaptiveLoss, GradientScaleAdaptiveLoss,
@@ -49,14 +56,16 @@ from .compile.lower import (
     get_integration_variables, get_numeric_integral, get_variables,
 )
 from .compile.separable import SeparableTraining, build_separable_residual
+from .compile.weak import WeakTraining, refine_weak, solve_weak_adaptive
 from .train import SolveResult, adam, lbfgs, make_step, solve, solve_hybrid
 from .gauss_newton import (
     build_ode_residual_vector, build_residual_vector, lm_least_squares,
     solve_gauss_newton, solve_ode_gauss_newton, trust_region_least_squares,
 )
 from .solvers import (
-    DAEProblem, NNDAE, NNODE, ODEPhi, ODEProblem, ODESolution, SDEProblem,
-    neural_adapter, solve_dae, solve_ode,
+    DAEProblem, DeepGalerkin, DeepRitz, NNDAE, NNODE, ODEPhi, ODEProblem,
+    ODESolution, SDEProblem, discretize_ritz, neural_adapter, solve_dae,
+    solve_ode,
 )
 from .utils.pytree import parameters_to_vector, vector_to_parameters
 from .utils.convert import params_from_jax, params_to_numpy

@@ -20,6 +20,13 @@ Bench's dense recipes:
   ``--to-l2-hybrid``, seconds to an RMS error below 1e-3 on the 2-D
   Poisson problem (hard-constrained Adam; Adam then L-BFGS).
 
+The problems of the trial-function zoo and the weak forms, each with its
+error measure: `two_scale_ode` and `multiscale_laplace`
+(`examples/fbpinn_multiscale.py`), `front_system`
+(`scripts/measure_weak_accuracy_tpu.py`), `poisson_1d_system`, the Burgers
+systems of `examples/burgers_dgm.py` and of the DGM test, and
+`ritz_poisson_2d`.
+
 The full separable Allen-Cahn recipe takes about ten minutes on one card,
 the dense one longer:
 
@@ -40,10 +47,11 @@ import numpy as np
 import torch
 
 from . import (
-    CausalTraining, Chain, DepVar, Differential, Domain, Eq, GridTraining,
-    Interval, NonAdaptiveLoss, PDESystem, PeriodicEmbedding, PhysicsInformedNN,
-    SeparableNet, SeparableTraining, StochasticTraining, Transformed, adam,
-    cos, depvar_params, discretize, lbfgs, mlp, sin, solve, symbols,
+    FBPINN, CausalTraining, Chain, DeepRitz, DepVar, Differential, Domain, Eq,
+    GridTraining, Interval, NonAdaptiveLoss, PDESystem, PeriodicEmbedding,
+    PhysicsInformedNN, SeparableNet, SeparableTraining, StochasticTraining,
+    Transformed, adam, cos, depvar_params, discretize, discretize_ritz, lbfgs,
+    mlp, sin, solve, symbols, tanh,
 )
 from .config import matmul_precision
 
@@ -408,6 +416,227 @@ def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
             "iterations": it, "rms": rms, "adam_seconds": adam_seconds,
             "lbfgs_ms_per_step": 1e3 * lbfgs_seconds / (it - adam_iters),
             "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# Trial-function zoo and weak forms: the problems that `chip_smoke.py` runs
+# at full width and the parity tests at a small one
+# ---------------------------------------------------------------------------
+
+TWO_SCALE = (1.0, 25.0)        # the slow and the fast frequency of the ODE
+
+
+def two_scale_ode(net, *, dx: float = 4 * np.pi / 1200, device="cuda"):
+    """Part 1 of `examples/fbpinn_multiscale.py`: ``u' = w1 cos(w1 x) + w2
+    cos(w2 x)`` on [-2 pi, 2 pi] (50 fast periods), ``u(0) = 0`` through the
+    ansatz ``tanh(w2 x) * net``, `GridTraining` (1201 nodes).  ``net`` is
+    the trial function under the ansatz, e.g. `two_scale_fbpinn()`."""
+    w1, w2 = TWO_SCALE
+    lo, hi = -2 * np.pi, 2 * np.pi
+    x = symbols("x")
+    u = DepVar("u")
+    system = PDESystem(
+        [Eq(Differential(x)(u(x)), w1 * cos(w1 * x) + w2 * cos(w2 * x))],
+        [Eq(u(0.0), 0.0)], [Domain(x, Interval(lo, hi))], ivs=[x], dvs=[u(x)])
+    hard = Transformed(net, lambda c, out: torch.tanh(w2 * c[0:1]) * out)
+    return discretize(system, PhysicsInformedNN(
+        hard, GridTraining(dx), dtype=torch.float32, device=device,
+        matmul_precision="highest"))
+
+
+def two_scale_fbpinn(subdivisions: int = 50):
+    return FBPINN([(-2 * np.pi, 2 * np.pi)], subdivisions=subdivisions,
+                  hidden=(16,))
+
+
+def two_scale_rel_l2(prob, theta: dict, n: int = 4001) -> float:
+    """rel L2 against ``sin(w1 x) + sin(w2 x)`` on ``n`` points."""
+    w1, w2 = TWO_SCALE
+    g = np.linspace(-2 * np.pi, 2 * np.pi, n)
+    with torch.no_grad(), matmul_precision("highest"):
+        got = prob.pinnrep.phi(g[None, :], depvar_params(theta))[0]
+    want = np.sin(w1 * g) + np.sin(w2 * g)
+    return _rel_l2(got, want)
+
+
+def _rel_l2(got: torch.Tensor, want: np.ndarray) -> float:
+    got = got.detach().double().cpu().numpy().reshape(-1)
+    want = want.reshape(-1)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def multiscale_laplace(L: int = 4, *, dx: float = 1 / 128, device="cuda"):
+    """Part 2 of `examples/fbpinn_multiscale.py`: ``-Lap u = f`` on the unit
+    square with ``u = (1/L) sum_l sin(2^l pi x) sin(2^l pi y)``, l = 1..L,
+    a multilevel `FBPINN` (levels of 1, 2, ..., 2^L subdomains per axis,
+    hidden width 16) under the hard constraint ``16 x(1-x) y(1-y) * net``,
+    `GridTraining` (129^2 nodes at L = 4), Taylor-mode derivatives, true
+    float32 matmuls."""
+    omegas = [2.0 ** l for l in range(1, L + 1)]
+    x, y = symbols("x y")
+    u = DepVar("u")
+    lap = (Differential(x) ** 2)(u(x, y)) + (Differential(y) ** 2)(u(x, y))
+    f = sum((2 * (w * np.pi) ** 2 / L) * sin(w * np.pi * x)
+            * sin(w * np.pi * y) for w in omegas)
+    system = PDESystem(
+        [Eq(-lap, f)],
+        [Eq(u(0.0, y), 0.0), Eq(u(1.0, y), 0.0),
+         Eq(u(x, 0.0), 0.0), Eq(u(x, 1.0), 0.0)],
+        [Domain(x, Interval(0, 1)), Domain(y, Interval(0, 1))],
+        ivs=[x, y], dvs=[u(x, y)])
+    net = Transformed(
+        FBPINN([(0, 1), (0, 1)], levels=[2 ** l for l in range(L + 1)],
+               hidden=(16,)),
+        lambda c, out: 16.0 * c[0:1] * (1 - c[0:1]) * c[1:2] * (1 - c[1:2])
+        * out)
+    return discretize(system, PhysicsInformedNN(
+        net, GridTraining(dx), derivative="jet", dtype=torch.float32,
+        device=device, matmul_precision="highest"))
+
+
+def multiscale_laplace_rel_l2(prob, theta: dict, L: int = 4,
+                              n: int = 257) -> float:
+    g = np.linspace(0, 1, n)
+    X, Y = np.meshgrid(g, g, indexing="ij")
+    want = sum(np.sin(2.0 ** l * np.pi * X) * np.sin(2.0 ** l * np.pi * Y)
+               for l in range(1, L + 1)) / L
+    with torch.no_grad(), matmul_precision("highest"):
+        got = prob.pinnrep.phi(np.stack([X.ravel(), Y.ravel()]),
+                               depvar_params(theta))[0]
+    return _rel_l2(got, want)
+
+
+FRONT = (60.0, 0.7)            # steepness and position of the tanh front
+FRONT_MESH = dict(elements=8, n_test=8, quad=12)   # 96 nodes an axis
+
+
+def front_system(S: float = FRONT[0], X0: float = FRONT[1]) -> PDESystem:
+    """The front problem of `scripts/measure_weak_accuracy_tpu.py`:
+    ``Lap u = f`` on the unit square with ``u = tanh(S (x - X0)) sin(pi
+    y)`` and its values on the four sides."""
+    x, y = symbols("x y")
+    u = DepVar("u")
+
+    def th(e):
+        return tanh(S * (e - X0))
+
+    f = ((-2 * S ** 2) * th(x) * (1.0 - th(x) ** 2) * sin(np.pi * y)
+         - np.pi ** 2 * th(x) * sin(np.pi * y))
+    eq = Eq((Differential(x) ** 2)(u(x, y)) + (Differential(y) ** 2)(u(x, y)),
+            f)
+    bcs = [Eq(u(0.0, y), float(np.tanh(-S * X0)) * sin(np.pi * y)),
+           Eq(u(1.0, y), float(np.tanh(S * (1 - X0))) * sin(np.pi * y)),
+           Eq(u(x, 0.0), 0.0), Eq(u(x, 1.0), 0.0)]
+    return PDESystem(eq, bcs, [Domain(x, Interval(0, 1)),
+                               Domain(y, Interval(0, 1))], [x, y], [u(x, y)])
+
+
+def front_discretization(strategy, *, device="cuda") -> PhysicsInformedNN:
+    """That script's discretization: ``mlp([2, 64, 64, 1])``, jet, float32,
+    seed 0."""
+    return PhysicsInformedNN(mlp([2, 64, 64, 1]), strategy, derivative="jet",
+                             dtype=torch.float32, device=device)
+
+
+def front_rel_l2(phi, theta: dict, n: int = 201, S: float = FRONT[0],
+                 X0: float = FRONT[1]) -> float:
+    xs = np.linspace(0, 1, n)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    with torch.no_grad(), matmul_precision("highest"):
+        got = phi(np.stack([X.ravel(), Y.ravel()]), depvar_params(theta))[0]
+    return _rel_l2(got, np.tanh(S * (X - X0)) * np.sin(np.pi * Y))
+
+
+def poisson_1d_system() -> PDESystem:
+    """``u'' = -pi^2 sin(pi x)`` on [0, 1], ``u(0) = u(1) = 0``: sin(pi x)."""
+    x = symbols("x")
+    u = DepVar("u")
+    return PDESystem(Eq((Differential(x) ** 2)(u(x)),
+                        -np.pi ** 2 * sin(np.pi * x)),
+                     [Eq(u(0.0), 0.0), Eq(u(1.0), 0.0)],
+                     [Domain(x, Interval(0, 1))], [x], [u(x)])
+
+
+def poisson_1d_rel_l2(phi, theta: dict, n: int = 201) -> float:
+    xs = np.linspace(0, 1, n)
+    with torch.no_grad(), matmul_precision("highest"):
+        got = phi(xs[None, :], depvar_params(theta))[0]
+    return _rel_l2(got, np.sin(np.pi * xs))
+
+
+def poisson_2d_rel_l2(phi, theta: dict, n: int = 21,
+                      scale: float = 1 / (2 * np.pi ** 2)) -> float:
+    """rel L2 against ``scale * sin(pi x) sin(pi y)`` on an n x n grid."""
+    xs = np.linspace(0, 1, n)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    with torch.no_grad(), matmul_precision("highest"):
+        got = phi(np.stack([X.ravel(), Y.ravel()]), depvar_params(theta))[0]
+    return _rel_l2(got, scale * np.sin(np.pi * X) * np.sin(np.pi * Y))
+
+
+def burgers_system(nu: float, ic, left, right, x_span=(0.0, 1.0)):
+    """Viscous Burgers ``u_t + u u_x = nu u_xx`` on ``x_span`` x [0, 1] with
+    ``u(x, 0) = ic(x)`` and ``u = left(t)``, ``right(t)`` at the ends."""
+    x, t = symbols("x t")
+    u = DepVar("u")
+    Dt, Dx = Differential(t), Differential(x)
+    eq = Eq(Dt(u(x, t)) + u(x, t) * Dx(u(x, t)), nu * (Dx ** 2)(u(x, t)))
+    a, b = (float(v) for v in x_span)
+    bcs = [Eq(u(x, 0.0), ic(x)), Eq(u(a, t), left(t)), Eq(u(b, t), right(t))]
+    return PDESystem(eq, bcs, [Domain(x, Interval(a, b)),
+                               Domain(t, Interval(0, 1))], [x, t], [u(x, t)])
+
+
+def burgers_dgm_example() -> PDESystem:
+    """`examples/burgers_dgm.py`'s system: nu = 0.05 on [-1, 1], ``u(x, 0) =
+    -sin(pi x)``, zero at both ends."""
+    return burgers_system(0.05, lambda x: -sin(np.pi * x), lambda t: 0.0,
+                          lambda t: 0.0, (-1.0, 1.0))
+
+
+WAVE = (0.2, 1.0, 0.5)         # nu, c, a of the travelling wave
+
+
+def burgers_wave_exact(xe, te, lib=np):
+    """``c - a tanh(a (x - c t) / 2 nu)``, an exact solution of Burgers."""
+    nu, c, a = WAVE
+    return c - a * lib.tanh(a / (2 * nu) * (xe - c * te))
+
+
+def burgers_wave_system() -> PDESystem:
+    """The travelling-wave problem of the JAX package's DGM test."""
+    import neuralpde_tpu_torch as lib
+
+    return burgers_system(WAVE[0], lambda x: burgers_wave_exact(x, 0.0, lib),
+                          lambda t: burgers_wave_exact(0.0, t, lib),
+                          lambda t: burgers_wave_exact(1.0, t, lib))
+
+
+def burgers_wave_max_error(phi, theta: dict, n: int = 21) -> float:
+    xs = np.linspace(0, 1, n)
+    X, T = np.meshgrid(xs, xs, indexing="ij")
+    with torch.no_grad(), matmul_precision("highest"):
+        got = phi(np.stack([X.ravel(), T.ravel()]), depvar_params(theta))[0]
+    got = got.double().cpu().numpy()
+    return float(np.max(np.abs(got - burgers_wave_exact(X, T).ravel())))
+
+
+def ritz_poisson_2d(strategy, *, sizes=(2, 32, 32, 1), device="cuda"):
+    """The JAX package's hard-constrained Deep Ritz test problem: ``-Lap u =
+    2 pi^2 sin(pi x) sin(pi y)`` on the unit square as the energy ``1/2
+    |grad u|^2 - f u`` with exact boundary values and no penalty term; the
+    minimizer is ``sin(pi x) sin(pi y)``."""
+    x, y = symbols("x y")
+    u = DepVar("u")
+    Dx, Dy = Differential(x), Differential(y)
+    f = 2 * np.pi ** 2 * sin(np.pi * x) * sin(np.pi * y)
+    energy = 0.5 * (Dx(u(x, y)) ** 2 + Dy(u(x, y)) ** 2) - f * u(x, y)
+    system = PDESystem([], [], [Domain(x, Interval(0, 1)),
+                                Domain(y, Interval(0, 1))], [x, y], [u(x, y)])
+    alg = DeepRitz(Transformed(mlp(list(sizes)), _hard_box), energy,
+                   strategy=strategy, dtype=torch.float32, device=device,
+                   seed=1)
+    return discretize_ritz(system, alg)
 
 
 def main(argv=None) -> None:

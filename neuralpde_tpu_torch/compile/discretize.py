@@ -253,6 +253,9 @@ def symbolic_discretize(pde_system: PDESystem,
                        else torch.as_tensor(v).to(device))
                    for k, v in init_params.items()}
 
+    for chain in chains:
+        chain.prepare(dtype, device)
+
     eq_params = [p.name for p in pde_system.ps]
     default_p = None
     if pde_system.ps:

@@ -10,10 +10,11 @@ so they run without a host sync; the outer damping (LM) or radius (trust
 region) adapts on the host, one sync per outer step.
 
 Deterministic training sets are required (the objective must be fixed
-across inner iterations): `GridTraining`, static-grid `SeparableTraining`
-or `QuadratureTraining` (its fixed rule); `solve_ode_gauss_newton` drives
-an `ODEProblem` + `NNODE` the same way.  The Weak branch and the PINO
-entry points wait for later slices of the port.
+across inner iterations): `GridTraining`, static-grid `SeparableTraining`,
+`QuadratureTraining` (its fixed rule) or `WeakTraining` (the hp-VPINN
+projection rows); `solve_ode_gauss_newton` drives an `ODEProblem` + `NNODE`
+the same way.  The PINO entry points come with the operator slice of the
+port.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ def build_residual_vector(pinnrep, adaptive_state=None) -> Callable:
     weighting than training did)."""
     from .adaptive import NonAdaptiveLoss
     from .compile.lower import LoweringContext
+    from .compile.weak import WeakTraining
     from .compile.separable import (
         SeparableTraining, _is_factorization_error, build_separable_residual,
         probe_residual, static_axis_nodes,
@@ -226,15 +228,34 @@ def build_residual_vector(pinnrep, adaptive_state=None) -> Callable:
             + [quad_block(f, a, w) for f, a, w in
                zip(lf.datafree_bc_loss_functions, pinnrep.bc_args, w_bc)])
 
-    elif type(strategy).__name__ == "WeakTraining":
-        raise NotImplementedError(
-            "Gauss-Newton on WeakTraining is not ported yet (the weak-form "
-            "slice of the port)")
+    elif isinstance(strategy, WeakTraining):
+        # hp-VPINN: the weak projection F_{j,k}(θ) is itself a deterministic
+        # residual vector (loss == Σ w_row·F²), so GN optimizes the exact
+        # weak objective; essential BCs contribute their pointwise rows.
+        ctx = LoweringContext.from_pinnrep(pinnrep)
+        spans = WeakTraining._spans(pinnrep)
+
+        def weak_block(eq, args, f, w):
+            rows, wvec = strategy._equation_rows(eq, args, ctx, pinnrep,
+                                                 spans, f)
+            scale = torch.as_tensor(
+                np.sqrt(np.asarray(wvec, np.float64) * w), dtype=dtype,
+                device=device)
+            return lambda theta: rows(theta) * scale
+
+        bc_sets = strategy._bc_training_sets(pinnrep, spans)
+        blocks = (
+            [weak_block(eq, a, f, w) for eq, a, f, w in
+             zip(pinnrep.eqs, pinnrep.pde_args,
+                 lf.datafree_pde_loss_functions, w_pde)]
+            + [dense_block(f, s, w) for f, s, w in
+               zip(lf.datafree_bc_loss_functions, bc_sets, w_bc)])
+
     else:
         raise TypeError(
             f"Gauss-Newton needs a deterministic strategy (GridTraining, "
-            f"SeparableTraining(dx=...) or QuadratureTraining); got "
-            f"{type(strategy).__name__}")
+            f"SeparableTraining(dx=...), QuadratureTraining or WeakTraining); "
+            f"got {type(strategy).__name__}")
 
     def residuals(theta):
         return torch.cat([b(theta) for b in blocks])
@@ -242,7 +263,7 @@ def build_residual_vector(pinnrep, adaptive_state=None) -> Callable:
     return residuals
 
 
-def _damped_lsqr(matvec, rmatvec, b, damp, iters: int, hi=None):
+def _damped_lsqr(matvec, rmatvec, b, damp, iters: int, hi=None, graph=None):
     """LSQR (Paige & Saunders 1982, Golub-Kahan bidiagonalization) for
     ``min ||J x - b||² + damp²·||x||²``: the LM normal equations
     ``(JᵀJ + damp² I) x = Jᵀ b`` without forming JᵀJ products in the
@@ -283,11 +304,11 @@ def _damped_lsqr(matvec, rmatvec, b, damp, iters: int, hi=None):
                 phibar, rhobar)
 
     x = _iterate(step, (torch.zeros_like(v), v, u, v, alpha, beta, alpha),
-                 iters)[0]
+                 iters, graph)[0]
     return lo(x)
 
 
-def _cg(matvec, b, maxiter: int, M=None, tol: float = 1e-5):
+def _cg(matvec, b, maxiter: int, M=None, tol: float = 1e-5, graph=None):
     """Conjugate gradients from x = 0, the iterates of
     `jax.scipy.sparse.linalg.cg`: it stops once ``||r||² ≤ tol²·||b||²``
     (``r·M r`` in place of ``||r||²`` without a preconditioner).  Here a
@@ -309,13 +330,14 @@ def _cg(matvec, b, maxiter: int, M=None, tol: float = 1e-5):
         return tuple(torch.where(active, n, o) for n, o in zip(new, state))
 
     return _iterate(step, (torch.zeros_like(b), b, torch.dot(b, p), p),
-                    maxiter)[0]
+                    maxiter, graph)[0]
 
 
 _EAGER_STEPS = 2
 
 
-def _iterate(step, state: tuple, iters: int) -> tuple:
+def _iterate(step, state: tuple, iters: int,
+             graph: dict | None = None) -> tuple:
     """``state = step(state)``, ``iters`` times, with no host sync.
 
     On CPU tensors a plain loop.  On CUDA tensors the first `_EAGER_STEPS`
@@ -324,7 +346,8 @@ def _iterate(step, state: tuple, iters: int) -> tuple:
     current stream, which must be a side stream that also ran the forward
     passes the step differentiates (`_side_stream`), and replayed for the
     rest: Gauss-Newton's inner iterations are launch-bound, a few hundred
-    small kernels behind `torch.func` dispatch on the host."""
+    small kernels behind `torch.func` dispatch on the host.  ``graph``, a
+    dict with "captures" and "replays", is added to when that happens."""
     state = tuple(state)
     warm = iters if not state[0].is_cuda else min(_EAGER_STEPS, iters)
     for _ in range(warm):
@@ -332,12 +355,15 @@ def _iterate(step, state: tuple, iters: int) -> tuple:
     if warm == iters:
         return state
     static = tuple(t.clone() for t in state)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=torch.cuda.current_stream()):
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured, stream=torch.cuda.current_stream()):
         for buf, new in zip(static, step(static)):
             buf.copy_(new)
     for _ in range(iters - warm):
-        graph.replay()
+        captured.replay()
+    if graph is not None:
+        graph["captures"] += 1
+        graph["replays"] += iters - warm
     return static
 
 
@@ -379,6 +405,9 @@ def lm_least_squares(r_fn: Callable, init_params, *, maxiters: int = 50,
     * ``matmul_precision``: the matmul-precision context of every GN
       computation (default "highest": true float32 matmuls, TF32 off);
       None inherits the ambient setting.
+
+    ``result.aux["cuda_graph"]`` counts the inner steps' graph captures and
+    replays on the card (both 0 on the CPU), as `solve`'s does.
     """
     v0, unravel = parameters_to_vector(init_params)
     v0 = v0.detach()
@@ -413,7 +442,8 @@ def lm_least_squares(r_fn: Callable, init_params, *, maxiters: int = 50,
 
         if solver == "lsqr":
             delta = _damped_lsqr(J, lambda y: vjp_fn(y)[0], r,
-                                 torch.sqrt(lam), cg_iters, hi=scalar_dtype)
+                                 torch.sqrt(lam), cg_iters, hi=scalar_dtype,
+                                 graph=graph)
         else:
             M = None
             if precondition:
@@ -426,12 +456,13 @@ def lm_least_squares(r_fn: Callable, init_params, *, maxiters: int = 50,
                 inv = 1.0 / (torch.abs(diag) + lam)
                 M = lambda p: inv * p      # noqa: E731
             delta = _cg(lambda p: vjp_fn(J(p))[0] + lam * p, vjp_fn(r)[0],
-                        cg_iters, M)
+                        cg_iters, M, graph=graph)
         v_new = v - delta
         return v_new, loss_of(v_new)
 
     lam = float(damping)
     v = v0
+    graph = {"captures": 0, "replays": 0}
     with _side_stream(v0), _prec_ctx(matmul_precision):
         loss = float(loss_of(v))
         history = [loss]
@@ -460,7 +491,8 @@ def lm_least_squares(r_fn: Callable, init_params, *, maxiters: int = 50,
                 break   # stalled: no descent direction at any damping
 
     return SolveResult(u=unravel(v), objective=loss, iterations=it,
-                       aux={"damping": lam}, history=history)
+                       aux={"damping": lam, "cuda_graph": graph},
+                       history=history)
 
 
 def trust_region_least_squares(r_fn: Callable, init_params, *,

@@ -25,7 +25,7 @@ tensor takes the plain PyTorch versions below (`tanh_jet2_reference`,
 launches the kernel or raises.  `tanh_jet2.launches` counts kernel launches
 of all three kernels; `tanh_jet2_forward_cuda.launches`,
 `tanh_jet2_backward_cuda.launches` and `tanh_jet2_jvp_cuda.launches` count
-each kernel's own.
+each kernel's own; `LAUNCH_SHAPES` holds every (kernel, shape) launched.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ import torch
 from ._build import check, load_library
 
 _LAUNCHER_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# every (kernel name, operand shape) launched since the import, or since a
+# caller cleared it: how a run shows at which shapes it used the kernels
+LAUNCH_SHAPES: set[tuple[str, tuple[int, ...]]] = set()
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +165,7 @@ def _launch(kind: str, operands) -> tuple:
             ref.numel(), torch.cuda.current_stream(ref.device).cuda_stream)
     check(lib, code, f"tanh_jet2 {kind} launch")
     tanh_jet2.launches += 1
+    LAUNCH_SHAPES.add((f"tanh_jet2_{kind}", tuple(ref.shape)))
     return tuple(outs)
 
 

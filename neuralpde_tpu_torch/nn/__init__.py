@@ -4,3 +4,7 @@ from .core import (  # noqa: F401
     mlp, relu, sigmoid, sin, softplus, swish, tanh, zeros_init,
 )
 from .separable import SeparableNet, separable_mlp  # noqa: F401
+from .kan import KANLayer, kan  # noqa: F401
+from .dgm import DGM, DGMLSTMLayer  # noqa: F401
+from .fbpinn import FBPINN  # noqa: F401
+from .adapters import TorchModuleAdapter  # noqa: F401

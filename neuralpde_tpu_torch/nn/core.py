@@ -187,6 +187,16 @@ class Module(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         raise NotImplementedError
 
+    def prepare(self, dtype, device) -> None:
+        """Make the constant tensors that ``forward`` reads beside its
+        parameters (an `FBPINN`'s subdomain geometry) for ``dtype`` on
+        ``device``.  `symbolic_discretize` calls it when a problem is
+        built, so that no step creates them under a `torch.func` transform
+        or a CUDA-graph capture.  Containers pass it on."""
+        for child in self.children():
+            if isinstance(child, Module):
+                child.prepare(dtype, device)
+
 
 class Dense(Module):
     """`y = act(W @ x + b)` with x shaped (in_dim, N)."""
@@ -478,6 +488,10 @@ class _Wrapper(Module):
 
     def reset_parameters(self, generator=None):
         self._inner.reset_parameters(generator)
+
+    def prepare(self, dtype, device):
+        if isinstance(self._inner, Module):
+            self._inner.prepare(dtype, device)
 
 
 class SkipConnection(_Wrapper):

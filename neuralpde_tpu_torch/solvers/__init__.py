@@ -2,3 +2,5 @@ from .problems import ODEProblem, ODESolution, SDEProblem, compute_ode_errors
 from .ode import NNODE, ODEPhi, solve_ode
 from .dae import DAEProblem, NNDAE, solve_dae
 from .adapter import neural_adapter
+from .dgm import DeepGalerkin  # noqa: F401
+from .ritz import DeepRitz, discretize_ritz  # noqa: F401

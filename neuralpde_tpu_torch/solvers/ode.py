@@ -154,7 +154,9 @@ def initial_theta(prob, alg, dtype, device) -> dict:
     """The flat initial parameters of an NNODE/NNDAE run on ``device``:
     the chain's (given, or drawn on the CPU from ``alg.seed`` so that a seed
     gives the same values on every device) under ``"depvar."``, real float
-    leaves in ``dtype``, and ``"p"`` with ``param_estim``."""
+    leaves in ``dtype``, and ``"p"`` with ``param_estim``.  The chain's
+    constant tensors are made there too (`Module.prepare`)."""
+    alg.chain.prepare(dtype, device)
     if alg.init_params is None:
         generator = torch.Generator().manual_seed(alg.seed)
         alg.chain.reset_parameters(generator)

@@ -88,6 +88,31 @@ def get_bounds(domains, eq_args_list, points: int, dtype, device=None):
     return bounds
 
 
+def get_loss_function(pinnrep, residual, args=None, strategy=None):
+    """Per-strategy scalar loss for ONE datafree residual — the reference's
+    exported debugging entry (reference: src/NeuralPDE.jl:101-105,
+    src/training_strategies.jl:163-176): given a residual closure
+    ``residual(cord, theta)``, returns ``loss(theta, generator) -> scalar``
+    built by the strategy's point source + reduction, on ``pinnrep``'s
+    device.
+
+    ``args`` is the equation's argument layout (defaults to the first PDE's);
+    ``strategy`` defaults to ``pinnrep.strategy``.
+    """
+    from types import SimpleNamespace
+
+    strategy = strategy if strategy is not None else pinnrep.strategy
+    if args is None:
+        args = pinnrep.pde_args[0]
+    shim = SimpleNamespace(dtype=pinnrep.dtype, device=pinnrep.device,
+                           domains=pinnrep.domains, pde_args=[list(args)],
+                           bc_args=[],
+                           loss_accum_dtype=pinnrep.loss_accum_dtype,
+                           flat_init_params=pinnrep.flat_init_params)
+    pde, _ = strategy.build(shim, [residual], [])
+    return pde[0]
+
+
 class GridTraining(TrainingStrategy):
     """Cartesian grid with spacing `dx` (reference: src/training_strategies.jl:1-15)."""
 

@@ -4,7 +4,9 @@ The JAX package keeps parameters as nested dicts
 (``{"depvar": {"layer_0": {"weight": w, "bias": b}}}``); the port keeps one
 flat dict keyed by the same path joined with dots
 (``{"depvar.layer_0.weight": w, ...}``), which is also how `nn.Module`
-names its parameters.
+names its parameters.  A list in the tree (the multilevel FBPINN's
+``{"nets": [stack_0, stack_1]}``) contributes its index as one level of the
+path (``"nets.0.layer_0.weight"``), as `nn.ModuleList` names its children.
 """
 
 from __future__ import annotations
@@ -14,8 +16,8 @@ import torch
 
 
 def params_from_jax(tree, *, dtype=None, device=None) -> dict:
-    """Nested dict of arrays -> flat dict of tensors with dotted keys
-    (``{"depvar": ..., "p": ...}`` keeps ``"p"`` as it is).  A real
+    """Nested dicts and lists of arrays -> flat dict of tensors with dotted
+    keys (``{"depvar": ..., "p": ...}`` keeps ``"p"`` as it is).  A real
     ``dtype`` gives complex leaves the complex dtype of that width."""
     out = {}
 
@@ -23,6 +25,10 @@ def params_from_jax(tree, *, dtype=None, device=None) -> dict:
         if isinstance(node, dict):
             for k, v in node.items():
                 walk(v, f"{prefix}{k}.")
+            return
+        if isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
             return
         array = np.array(node)
         leaf_dtype = dtype
@@ -37,7 +43,8 @@ def params_from_jax(tree, *, dtype=None, device=None) -> dict:
 
 def params_to_numpy(params: dict) -> dict:
     """Flat dict of tensors with dotted keys -> nested dict of numpy arrays
-    (the inverse of `params_from_jax`)."""
+    (the inverse of `params_from_jax`): a level whose keys are the indices
+    ``"0".."n-1"`` comes back as a list."""
     out: dict = {}
     for key, value in params.items():
         *path, leaf = key.split(".")
@@ -45,4 +52,13 @@ def params_to_numpy(params: dict) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().numpy()
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and set(node) == {str(i) for i in range(len(node))}:
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(out)

@@ -39,9 +39,11 @@ def poisson_2d(pkg):
 
 def tree_like(template, rng, scale=0.5):
     """Normal draws (std ``scale``) in the layout of a JAX parameter tree
-    (nested dicts of arrays, e.g. ``net.init(key)``)."""
+    (nested dicts and lists of arrays, e.g. ``net.init(key)``)."""
     if isinstance(template, dict):
         return {k: tree_like(v, rng, scale) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [tree_like(v, rng, scale) for v in template]
     return rng.normal(scale=scale, size=template.shape)
 
 

@@ -466,3 +466,83 @@ def test_quad_adapt_resolves_with_fresh_graphs(cuda):
     assert res.iterations == 600
     assert res.aux["cuda_graph"]["captures"] == 2
     assert res.aux["cuda_graph"]["replays"] == 598
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ibp,launched", [(0, True), (1, False)])
+def test_captured_weak_step_matches_eager_steps(cuda, ibp, launched):
+    """A `WeakTraining` step through `solve`: one eager step, a capture,
+    replays, equal to eager `make_step` steps; grid, contraction tensors
+    and row weights lie on the card, so the capture copies nothing from the
+    host.  ibp = 0 keeps second derivatives on the net (Taylor mode, the
+    kernel), ibp = 1 leaves first derivatives (no launch)."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.WeakTraining(elements=3, n_test=4,
+                                                  ibp=ibp))
+    losses, theta, _ = _eager(prob, 6, seed=3)
+    before = tj.tanh_jet2_forward_cuda.launches
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3)
+    assert (tj.tanh_jet2_forward_cuda.launches > before) == launched
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, [losses[2], losses[5]],
+                               rtol=1e-6)
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_weak_adaptive_captures_one_graph_a_round(cuda):
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_1d_system
+
+    disc = npde.PhysicsInformedNN(
+        npde.mlp([1, 8, 8, 1]), npde.WeakTraining(elements=4, n_test=4),
+        dtype=torch.float32, device=cuda)
+    ares = npde.solve_weak_adaptive(poisson_1d_system(), disc,
+                                    npde.adam(1e-3), rounds=3, maxiters=6,
+                                    inner_steps=3)
+    assert [r.aux["cuda_graph"]["captures"] for r in ares.results] == [1] * 3
+    assert [r.aux["cuda_graph"]["replays"] for r in ares.results] == [5] * 3
+    assert ares.prob.pinnrep.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [None, [1, 2]], ids=["flat", "multilevel"])
+def test_captured_fbpinn_step_matches_eager_steps(cuda, levels):
+    """An FBPINN's Taylor-mode step through `solve` equals eager steps: the
+    subdomain geometry is on the card before the capture, and the kernel
+    takes the (J, hidden, N) tensors."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+
+    kw = dict(subdivisions=2) if levels is None else dict(levels=levels)
+    net = npde.FBPINN([(0, 1)] * 2, hidden=(8,), **kw)
+    prob = npde.discretize(poisson_2d_system(), npde.PhysicsInformedNN(
+        net, npde.GridTraining(0.125), derivative="jet", dtype=torch.float32,
+        device=cuda))
+    assert any(device.type == "cuda" for _, device in net._geometry)
+    losses, theta, _ = _eager(prob, 6, seed=0)
+    before = tj.tanh_jet2_forward_cuda.launches
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3)
+    assert tj.tanh_jet2_forward_cuda.launches > before
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, [losses[2], losses[5]],
+                               rtol=1e-6)
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_gauss_newton_on_weak_rows_captures_its_inner_step(cuda):
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_1d_system
+
+    prob = npde.discretize(poisson_1d_system(), npde.PhysicsInformedNN(
+        npde.mlp([1, 8, 8, 1]), npde.WeakTraining(elements=4, n_test=5),
+        dtype=torch.float32, device=cuda))
+    res = npde.solve_gauss_newton(prob, maxiters=3, cg_iters=20)
+    assert res.aux["cuda_graph"] == {"captures": 3, "replays": 3 * 18}
+    assert res.objective < res.history[0]

@@ -150,8 +150,9 @@ def test_default_initial_parameters_are_seeded():
 
 def test_not_yet_ported_options_raise():
     """Integral terms are ported: a problem with one builds and takes a step
-    on the dense and on the factorized path.  What still waits says so:
-    Gauss-Newton on the weak form."""
+    on the dense and on the factorized path.  So is Gauss-Newton on the weak
+    form: a `WeakTraining` problem gives a residual vector, and a strategy
+    that Gauss-Newton does not know is refused by name."""
     x, s = tpkg.symbols("x s")
     u = tpkg.DepVar("u")
     system = tpkg.PDESystem(
@@ -164,11 +165,17 @@ def test_not_yet_ported_options_raise():
             chain, strategy, device="cpu"))
         assert np.isfinite(tpkg.solve(prob, maxiters=1).objective)
 
-    class WeakTraining(tpkg.TrainingStrategy):
+    weak = tpkg.discretize(poisson_2d(tpkg), tpkg.PhysicsInformedNN(
+        tpkg.mlp([2, 8, 1]), tpkg.WeakTraining(elements=2, n_test=3),
+        device="cpu"))
+    r = tpkg.build_residual_vector(weak.pinnrep)(weak.init_params)
+    assert r.ndim == 1 and bool(torch.isfinite(r).all())
+
+    class Unknown(tpkg.TrainingStrategy):
         pass
 
-    prob.pinnrep.strategy = WeakTraining()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    prob.pinnrep.strategy = Unknown()
+    with pytest.raises(TypeError, match="deterministic strategy"):
         tpkg.build_residual_vector(prob.pinnrep)
 
 
