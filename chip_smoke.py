@@ -11,9 +11,10 @@ stochastic batch of 2,097,152 points in microbatches of 32,768, Adam), the
 separable (SPINN) trainer of `bench.py`'s second throughput line and its
 accuracy recipes, matrix-free Gauss-Newton, the integro-differential path
 (integral terms by batched Gauss-Legendre quadrature, `QuadratureTraining`)
-the ODE/DAE solver surface, and the trial-function zoo (FBPINN, KAN, DGM,
+the ODE/DAE solver surface, the trial-function zoo (FBPINN, KAN, DGM,
 a wrapped `torch.nn.Module`) with the variational formulations (hp-VPINN
-`WeakTraining`, Deep Ritz), in phases that each print their own lines, their
+`WeakTraining`, Deep Ritz), and the stochastic layer (SDE solvers, HMC/NUTS,
+the Bayesian PINNs), in phases that each print their own lines, their
 seconds, and raise on failure:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
@@ -86,14 +87,28 @@ seconds, and raise on failure:
     its 5,000 steps) and the same configuration for all 5,000 on the
     travelling wave, which has an exact solution; a
     hard-constrained KAN on bench's 2-D Poisson; Deep Ritz with Monte-Carlo
-    energy.
+    energy;
+24. stochastic card vs CPU: `inner_sde_loss` (weak, strong), the BNNODE
+    log-density (Lotka-Volterra with data and `estim_collocate`) and the
+    BPINN log-density (2-D Poisson, mlp([2,64,64,1]), jet) from the same
+    parameters and draws, and a captured HMC chain of 30 draws against the
+    same chain run eagerly (bit for bit);
+25. SDE: `examples/gbm_sde.py` at its width, the strong-training and
+    inverse-EM problems and the OU Fokker-Planck `SDEPINN` of
+    tests/test_sde.py, each held to that test's bound;
+26. Bayesian: HMC and NUTS on tests/test_bayesian.py's Gaussians, its
+    Lotka-Volterra BNNODE at full size (float64, as the test runs it), the
+    2-D Poisson BPINN of tests/test_bpinn_pde.py, and the same Poisson as
+    `BayesianPINN(mlp([2,64,64,1]), derivative="jet")`, whose draws launch
+    `tanh_jet2`, with a profile of its draws.
 
 Phases 9, 11 to 19 and 21 to 23 train through `solve`, which on the card runs each
 kind of step once as it is, then captures it as a CUDA graph and replays
 it: a counter sees the eager step and the capture, not the replays.  So
 the JSON line of kernels sums the launches of the eager paths (phases 5, 6,
-8 and 20) and of phases 18 and 21 to 23, which set the counts to 0 just
-before each of their solves, read them just after and require the forward
+8 and 20), of phases 18 and 21 to 23, and of phase 26's jet sampler (whose
+draws replay a captured graph too), which set the counts to 0 just
+before each of their solves or samplers, read them just after and require the forward
 and backward kernels in them (the eager step and the capture) wherever the
 path takes second derivatives by Taylor mode; every other graph phase, like
 phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart.  The last line is
@@ -108,6 +123,7 @@ stage's 333,000, phase 21's Laplace problem the steps that 20 s allow of
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -134,7 +150,8 @@ CHECK_SHAPES = (KERNEL_SHAPE,
                 (HIDDEN, 256),       # Allen-Cahn stage (phase 11)
                 (HIDDEN, 8_192),     # dense causal (13), to accuracy (14),
                                      # the integro-differential solve (18)
-                (HIDDEN, 1_024),     # their boundary batches
+                (HIDDEN, 1_024),     # their boundary batches; the 32^2
+                                     # grid of phase 26's jet BPINN
                 # the nodes of an auto-refined QuadratureTraining() rule in
                 # phase 18: 8 per panel, panels doubling up to its budget
                 *((HIDDEN, 8 * 2 ** k) for k in range(7)),
@@ -177,7 +194,7 @@ ADAPTIVE_STEPS = 300
 ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23)   # summed in the kernels line
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26)   # summed in the kernels line
 INTEGRAL_ORDER = 20         # nodes of each point's integral (phase 18)
 IDE_BATCH = 8_192
 IDE_STEPS = 3_000
@@ -222,6 +239,16 @@ DGM_EXAMPLE_STEPS = 1_500       # of it on the example's own problem, which
                                 # has no exact solution to be held to
 KAN_LIMIT = 0.05
 RITZ_LIMIT = 5e-2
+# the JAX package's own tests' bounds: tests/test_sde.py:42,79,104 (GBM mean,
+# inverse EM drift, OU density), tests/test_bayesian.py:156 (Lotka-Volterra
+# parameters), tests/test_bpinn_pde.py:123 (2-D Poisson RMS)
+SDE_GBM_LIMIT = 0.15
+SDE_INVERSE_LIMIT = 0.15
+SDE_OU_LIMIT = 0.35
+BNNODE_PARAM_RTOL = 0.05
+BPINN_RMS_LIMIT = 0.05
+BPINN_JET_DRAWS = 300          # the kernel path of phase 26
+BPINN_JET_LEAPFROG = 20
 
 
 def phase_device() -> tuple[str, str]:
@@ -1855,6 +1882,434 @@ def phase_zoo_solvers(card: str) -> dict:
     return total
 
 
+# --- the stochastic layer (phases 24-26) -----------------------------------
+
+def _gbm_sde(pkg):
+    """tests/test_sde.py's and examples/gbm_sde.py's GBM: du = 1.2 u dt +
+    0.2 u dW, u(0) = 1, E[u(t)] = exp(1.2 t)."""
+    return pkg.SDEProblem(f=lambda u, p, t: 1.2 * u,
+                          g=lambda u, p, t: 0.2 * u, u0=1.0, tspan=(0.0, 1.0))
+
+
+def _lotka_volterra_bnnode(npde, draws: int, n_leapfrog: int):
+    """tests/test_bayesian.py:116-156: the four-parameter Lotka-Volterra
+    inverse problem (RK4 data with 1% noise, `estim_collocate`)."""
+    p_true = np.array([1.5, 1.0, 3.0, 1.0])
+
+    def fnp(u, p):
+        return np.array([p[0] * u[0] - p[1] * u[0] * u[1],
+                         -p[2] * u[1] + p[3] * u[0] * u[1]])
+
+    def f(u, p, t):
+        return torch.stack([p[0] * u[0] - p[1] * u[0] * u[1],
+                            -p[2] * u[1] + p[3] * u[0] * u[1]])
+
+    ts = np.linspace(0, 2.0, 80)
+    us = [np.array([1.0, 1.0])]
+    for i in range(len(ts) - 1):
+        h, u_ = ts[i + 1] - ts[i], us[-1]
+        k1 = fnp(u_, p_true)
+        k2 = fnp(u_ + h / 2 * k1, p_true)
+        k3 = fnp(u_ + h / 2 * k2, p_true)
+        k4 = fnp(u_ + h * k3, p_true)
+        us.append(u_ + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4))
+    traj = np.stack(us)
+    noisy = traj + 0.01 * traj.std(0) * np.random.default_rng(0).standard_normal(
+        traj.shape)
+    prob = npde.ODEProblem(f=f, u0=np.array([1.0, 1.0]), tspan=(0.0, 2.0),
+                           p=np.array([1.0, 1.0, 2.0, 1.0]))
+    alg = npde.BNNODE(
+        npde.mlp([1, 16, 16, 2], activation=torch.sigmoid),
+        dataset=[noisy[:, 0], noisy[:, 1], ts, np.full_like(ts, ts[1] - ts[0])],
+        draw_samples=draws, l2std=(0.02, 0.02), phystd=(0.05, 0.05),
+        priorsNNw=(0.0, 3.0),
+        param=(npde.Normal(2.0, 1.0), npde.Normal(1.5, 1.0),
+               npde.Normal(2.5, 1.0), npde.Normal(1.5, 1.0)),
+        estim_collocate=True, n_leapfrog=n_leapfrog, numensemble=400)
+    return prob, alg, p_true
+
+
+def _bpinn_poisson(npde, width: int, dx: float, activation, derivative,
+                   device="cuda"):
+    """tests/test_bpinn_pde.py:97's 2-D Poisson as a `BayesianPINN`."""
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+
+    disc = npde.BayesianPINN(npde.mlp([2, width, width, 1]
+                                      if width == HIDDEN else [2, width, 1],
+                                      activation=activation),
+                             npde.GridTraining(dx), derivative=derivative,
+                             device=device)
+    return poisson_2d_system(), disc
+
+
+def _value_grad_norm(fn, theta) -> tuple[float, float]:
+    q = theta.detach().clone().requires_grad_(True)
+    v = fn(q)
+    (g,) = torch.autograd.grad(v, q)
+    return float(v.detach()), float(g.double().norm())
+
+
+def _card_vs_cpu_line(what, cpu, card) -> None:
+    (cl, cn), (gl, gn) = cpu, card
+    d_loss = abs(gl - cl) / max(abs(cl), 1e-30)
+    d_norm = abs(gn - cn) / max(abs(cn), 1e-30)
+    print(f"[stochastic-card-vs-cpu] {what}: value {gl:.9g} vs {cl:.9g} (rel "
+          f"{d_loss:.2e}), grad norm {gn:.9g} vs {cn:.9g} (rel {d_norm:.2e}); "
+          f"limits {CARD_VS_CPU_RTOL}")
+    if not all(map(math.isfinite, (cl, cn, gl, gn))):
+        raise AssertionError(f"{what}: non-finite value or gradient")
+    if d_loss > CARD_VS_CPU_RTOL["loss"] or d_norm > CARD_VS_CPU_RTOL["grad_norm"]:
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+
+
+def phase_stochastic_card_vs_cpu(card: str) -> None:
+    """`inner_sde_loss` (weak, strong), the BNNODE log-density
+    (Lotka-Volterra with data and `estim_collocate`) and the BPINN
+    log-density (2-D Poisson, mlp([2,64,64,1]), jet) on the card and the
+    CPU from the same parameters and draws; then one HMC chain of 30
+    draws captured against the same chain run eagerly."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.bayesian import hmc
+    from neuralpde_tpu_torch.bayesian.pde import PDELogTargetDensity
+    from neuralpde_tpu_torch.solvers import sde
+
+    net = npde.mlp([4, 16, 16, 1], activation=torch.sigmoid)
+    net.reset_parameters(torch.Generator().manual_seed(3))
+    params = {f"depvar.{k}": v.detach().clone()
+              for k, v in net.named_parameters()}
+    prob = _gbm_sde(npde)
+    g = torch.Generator().manual_seed(4)
+    ts = torch.linspace(0, 1, 51)
+    for strong, mk in ((False, sde.add_rand_coeff),
+                       (True, sde.add_rand_coeff_2)):
+        inputs = mk(g, ts, 3, 8, torch.float32)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            theta = {k: v.to(dev).requires_grad_(True)
+                     for k, v in params.items()}
+            phi = sde.SDEPhi(net, 0.0, 1.0, like=theta["depvar.layer_0.weight"])
+            loss = sde.inner_sde_loss(phi, prob.f, prob.g, True,
+                                      inputs.to(dev), theta, None, False,
+                                      strong, True)
+            grads = torch.autograd.grad(loss, list(theta.values()))
+            out[dev] = (float(loss.detach()), math.sqrt(sum(
+                float((gr.double() ** 2).sum()) for gr in grads)))
+        _card_vs_cpu_line(f"inner_sde_loss {'strong' if strong else 'weak'}, "
+                          "GBM, mlp([4,16,16,1]), (4, 51, 8) draws, f32",
+                          out["cpu"], out["cuda"])
+
+    lv, lv_alg, _ = _lotka_volterra_bnnode(npde, 0, 25)
+    lv_alg.chain.reset_parameters(torch.Generator().manual_seed(0))
+    lv_init = {k: v.detach().clone()
+               for k, v in lv_alg.chain.named_parameters()}
+
+    def lv_density(device):
+        return npde.ahmc_bayesian_pinn_ode(
+            lv, lv_alg.chain, dataset=lv_alg.dataset, draw_samples=0,
+            l2std=lv_alg.l2std, phystd=lv_alg.phystd,
+            priorsNNw=lv_alg.priorsNNw, param=lv_alg.param,
+            estim_collocate=True, init_params=lv_init, device=device)[2]
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ltd = lv_density(dev)
+        theta = torch.cat([ltd.init_flat_nn, torch.tensor(
+            [1.4, 0.9, 2.8, 1.1], device=dev)])
+        out[dev] = _value_grad_norm(ltd, theta)
+    _card_vs_cpu_line("LogTargetDensity, Lotka-Volterra, mlp([1,16,16,2]), "
+                      "data + estim_collocate, f32", out["cpu"], out["cuda"])
+
+    out, init = {}, None
+    for dev in ("cpu", "cuda"):
+        system, disc = _bpinn_poisson(npde, HIDDEN, ZOO_GRID, torch.tanh,
+                                      "jet", dev)
+        disc.init_params = init
+        rep = npde.symbolic_discretize(system, disc)
+        init = init or {k: v.cpu() for k, v in rep.init_params.items()}
+        ltd = PDELogTargetDensity(rep, None, npde.Normal(0.0, 2.0), [],
+                                  ([0.05], [0.01] * 4, []), [0.05])
+        out[dev] = _value_grad_norm(ltd, ltd.init_flat_nn)
+    _card_vs_cpu_line("PDELogTargetDensity, 2-D Poisson, mlp([2,64,64,1]) "
+                      "tanh, GridTraining(1/31), jet, f32", out["cpu"],
+                      out["cuda"])
+
+    chains = []
+    for graphs in (True, False):
+        ltd = lv_density("cuda")
+        theta0 = torch.cat([ltd.init_flat_nn,
+                            torch.tensor([2.0, 1.5, 2.5, 1.5], device="cuda")])
+        res = hmc.sample(ltd, theta0, torch.Generator(device="cuda").manual_seed(7),
+                         30, n_leapfrog=10, init_step_size=1e-3, graphs=graphs)
+        torch.cuda.synchronize()
+        chains.append(res)
+    a, b = chains
+    same = (torch.equal(a.samples, b.samples)
+            and torch.equal(a.accept_prob, b.accept_prob))
+    print(f"[stochastic-card-vs-cpu] HMC chain of 30 draws (Lotka-Volterra "
+          f"BNNODE log-density, n_leapfrog 10): captured "
+          f"({a.aux['cuda_graph']['captures']} capture, "
+          f"{a.aux['cuda_graph']['replays']} replays) against eager "
+          f"({b.aux['cuda_graph']['captures']} captures): bit-equal {same}, "
+          f"max |diff| {float((a.samples - b.samples).abs().max()):.3e}, mean "
+          f"accept {float(a.accept_prob.mean()):.4f}; {card}")
+    if not same or a.aux["cuda_graph"]["replays"] != 29:
+        raise AssertionError("the captured HMC chain differs from the eager one")
+
+
+@contextlib.contextmanager
+def _default_dtype(dtype):
+    """The solvers work in torch's default dtype: set it for the body."""
+    before = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(before)
+
+
+def _sol_seconds(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_sde(card: str) -> None:
+    """The SDE solvers at the JAX tests' sizes and bounds."""
+    import neuralpde_tpu_torch as npde
+
+    sig = torch.sigmoid
+    alg = npde.NNSDE(npde.mlp([4, 16, 16, 1], activation=sig), npde.adam(2e-2),
+                     sub_batch=8, numensemble=50)
+    sol, s, peak = _sol_seconds(lambda: npde.solve_sde(
+        _gbm_sde(npde), alg, dt=1 / 50, maxiters=2000, inner_steps=25))
+    ts = np.asarray(sol.timepoints)
+    mean = np.asarray([float(p.mean) for p in sol.estimated_sol[0]])
+    rel = float(np.mean(np.abs(mean - np.exp(1.2 * ts)) / np.exp(1.2 * ts)))
+    g = sol.original.aux["cuda_graph"]
+    print(f"[sde] examples/gbm_sde.py: mlp([4,16,16,1]) sigmoid, sub_batch 8, "
+          f"dt 1/50 (51 x 8 inputs), Adam(2e-2) f32, 2000 steps in {s:.2f} s "
+          f"({1e3 * s / 2000:.4f} ms a step over the run, eager step and "
+          f"capture included); E[u(1)] {mean[-1]:.5f} (exact {np.exp(1.2):.5f})"
+          f"; mean rel error vs exp(1.2 t) {rel:.4e} (limit {SDE_GBM_LIMIT}); "
+          f"peak {peak:.3f} GiB; {_graph_line(sol.original)}; {card}")
+    if not rel < SDE_GBM_LIMIT or g["replays"] != 2000 - 1:
+        raise AssertionError(f"sde gbm: rel {rel}, graphs {g}")
+
+    prob = npde.SDEProblem(f=lambda u, p, t: -u, g=lambda u, p, t: 0.1,
+                           u0=0.5, tspan=(0.0, 1.0))
+    alg = npde.NNSDE(npde.mlp([3, 12, 1], activation=sig), npde.adam(0.02),
+                     sub_batch=3, strong_loss=True)
+    sol, s, _ = _sol_seconds(lambda: npde.solve_sde(
+        prob, alg, dt=1 / 20.0, maxiters=400, abstol=1e-12, inner_steps=25))
+    print(f"[sde] strong training (tests/test_sde.py:45), mlp([3,12,1]), 400 "
+          f"steps in {s:.2f} s: loss {sol.original.history[0]:.5g} -> "
+          f"{sol.original.objective:.5g}; {_graph_line(sol.original)}")
+    if not math.isfinite(sol.original.objective):
+        raise AssertionError("sde strong: non-finite loss")
+
+    rng = np.random.default_rng(1)
+    ts = np.linspace(0.0, 1.0, 80)
+    dt = ts[1] - ts[0]
+    paths = []
+    for _ in range(6):
+        x = [1.0]
+        for _ in range(len(ts) - 1):
+            x.append(x[-1] + 0.8 * x[-1] * dt
+                     + 0.1 * x[-1] * np.sqrt(dt) * rng.standard_normal())
+        paths.append(np.asarray(x))
+    prob = npde.SDEProblem(f=lambda u, p, t: p[0] * u,
+                           g=lambda u, p, t: 0.1 * u, u0=1.0, tspan=(0.0, 1.0),
+                           p=np.array([0.3]))
+    alg = npde.NNSDE(npde.mlp([3, 12, 1], activation=sig), npde.adam(0.02),
+                     sub_batch=4, param_estim=True, dataset=[paths, ts])
+    sol, s, _ = _sol_seconds(lambda: npde.solve_sde(
+        prob, alg, dt=1 / 25.0, maxiters=1500, abstol=1e-12, inner_steps=25))
+    mu = sol.estimated_params[0]
+    print(f"[sde] inverse EM problem (tests/test_sde.py:56), 1500 steps in "
+          f"{s:.2f} s: mu {mu:.5f} (true 0.8, limit |error| < "
+          f"{SDE_INVERSE_LIMIT}); {_graph_line(sol.original)}")
+    if not abs(mu - 0.8) < SDE_INVERSE_LIMIT:
+        raise AssertionError(f"sde inverse: mu {mu}")
+
+    prob = npde.SDEProblem(f=lambda x, p, t: -1.0 * x, g=lambda x, p, t: 0.5,
+                           u0=0.0, tspan=(0.0, 3.0))
+    chain = npde.mlp([2, 16, 16, 1], activation=torch.tanh,
+                     out_activation=npde.nn.softplus)
+    alg = npde.SDEPINN(chain=chain, x_0=-2.0, x_end=2.0, Nt=15, dx=0.1,
+                       distrib=npde.Normal(0.0, 0.2), optimalg=npde.adam(0.01),
+                       lambda_norm=10.0)
+    (res, phi, _), s, peak = _sol_seconds(lambda: npde.solve_sde_weak(
+        prob, alg, maxiters=2500, inner_steps=25))
+    xs = np.linspace(-2, 2, 41)
+    with torch.no_grad():
+        dens = phi(np.stack([xs, np.full_like(xs, 3.0)]),
+                   npde.depvar_params(res.u))[0].double().cpu().numpy()
+    var = 0.5 ** 2 / 2
+    want = np.exp(-xs**2 / (2 * var)) / np.sqrt(2 * np.pi * var)
+    err = float(np.max(np.abs(dens / np.trapezoid(dens, xs) - want)))
+    print(f"[sde] OU Fokker-Planck SDEPINN (tests/test_sde.py:82): "
+          f"mlp([2,16,16,1]) tanh/softplus, 41 x 16 grid, Adam(1e-2) f32, "
+          f"2500 steps in {s:.2f} s ({1e3 * s / 2500:.4f} ms a step over the "
+          f"run); loss {res.history[0]:.5g} -> {res.objective:.5g}; max "
+          f"density error at t = 3 {err:.4e} (limit {SDE_OU_LIMIT}); peak "
+          f"{peak:.3f} GiB; {_require_graph('sdepinn', res)}; {card}")
+    if not err < SDE_OU_LIMIT:
+        raise AssertionError(f"sdepinn: density error {err}")
+
+
+def _chain_line(samples, n_params: int, seconds: float) -> str:
+    """ESS/s and split-R-hat of the last ``n_params`` coordinates over the
+    post-warm-up third of the chain."""
+    from neuralpde_tpu_torch import ess, split_rhat
+
+    tail = samples[(2 * samples.shape[0]) // 3:, -n_params:].double().cpu()
+    e, r = ess(tail.numpy()), split_rhat(tail.numpy())
+    return (f"ESS {np.array2string(e, precision=1)} "
+            f"({np.array2string(e / seconds, precision=2)} /s), split-R-hat "
+            f"{np.array2string(r, precision=4)}")
+
+
+def phase_bayesian(card: str) -> dict:
+    """HMC and NUTS on the JAX tests' Gaussians, BNNODE Lotka-Volterra at
+    its full configuration, the BPINN 2-D Poisson at its test's size, and
+    the kernel path: the same Poisson at mlp([2,64,64,1]), jet."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.bayesian import hmc
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    mu = torch.tensor([1.0, -2.0], device="cuda")
+    sigma = torch.tensor([0.5, 2.0], device="cuda")
+    res, s, _ = _sol_seconds(lambda: hmc.sample(
+        lambda q: -0.5 * torch.sum(((q - mu) / sigma) ** 2),
+        torch.zeros(2, device="cuda"), seed=0, draw_samples=4000,
+        n_leapfrog=20, init_step_size=0.25))
+    tail = res.samples[3000:].cpu().numpy()
+    ok = (np.all(np.abs(tail.mean(0) - [1.0, -2.0]) < 0.3)
+          and np.all(np.abs(tail.std(0) / [0.5, 2.0] - 1) < 0.3)
+          and float(res.accept_prob[3000:].mean()) > 0.5)
+    print(f"[bayesian] HMC on tests/test_bayesian.py:16's Gaussian, 4000 "
+          f"draws, n_leapfrog 20: {s:.2f} s ({1e3 * s / 4000:.4f} ms a draw); "
+          f"mean {tail.mean(0)}, std {tail.std(0)}, accept "
+          f"{float(res.accept_prob[3000:].mean()):.3f}; graphs "
+          f"{res.aux['cuda_graph']}; within the test's bands {ok}")
+    if not ok:
+        raise AssertionError("hmc gaussian outside the bands")
+
+    cov = np.array([[1.0, 0.9], [0.9, 1.0]])
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device="cuda")
+    res, s, _ = _sol_seconds(lambda: hmc.sample(
+        lambda q: -0.5 * q @ prec @ q, torch.zeros(2, device="cuda") + 3.0,
+        seed=0, draw_samples=2600, kernel="nuts", max_depth=6,
+        init_step_size=0.2))
+    tail = res.samples[1750:].cpu().numpy()
+    ok = (np.all(np.abs(tail.mean(0)) < 0.3)
+          and np.all(np.abs(np.cov(tail.T) - cov) < 0.4))
+    print(f"[bayesian] NUTS on tests/test_bayesian.py:33's correlated "
+          f"Gaussian, 2600 draws, max_depth 6: {s:.2f} s "
+          f"({1e3 * s / 2600:.4f} ms a draw, a host loop over the captured "
+          f"leapfrog step); mean {tail.mean(0)}, cov "
+          f"{np.cov(tail.T).ravel()}; graphs {res.aux['cuda_graph']}; within "
+          f"the test's bands {ok}")
+    if not ok:
+        raise AssertionError("nuts gaussian outside the bands")
+
+    # float64, as the JAX test runs it: the density is ~-1.5e6 at the
+    # start, where float32's spacing quantizes the energy differences of
+    # the Metropolis test and dual averaging shrinks the step size to ~1e-9
+    prob, alg, p_true = _lotka_volterra_bnnode(npde, 1200, 25)
+    with _default_dtype(torch.float64):
+        sol, s, peak = _sol_seconds(lambda: npde.solve_bnnode(prob, alg))
+    est = np.array([float(p.mean) for p in sol.estimated_de_params])
+    rel = np.abs(est - p_true) / p_true
+    graph = sol.original.statistics["cuda_graph"]
+    print(f"[bayesian] BNNODE Lotka-Volterra (tests/test_bayesian.py:116-156: "
+          f"mlp([1,16,16,2]) sigmoid, 1200 draws, n_leapfrog 25, "
+          f"estim_collocate), f64: {s:.2f} s, {1200 / s:.2f} draws/s, "
+          f"{1200 * 25 / s:.1f} gradient evaluations/s, peak {peak:.3f} GiB; "
+          f"{_chain_line(sol.original.samples, 4, s)}; estimates {est} "
+          f"against {p_true} (rel {rel}, limit {BNNODE_PARAM_RTOL}); "
+          f"step size {sol.original.statistics['step_size']:.4e}; graphs "
+          f"{graph}; {card}")
+    if not np.all(rel < BNNODE_PARAM_RTOL) or graph["replays"] != 1200 - 1:
+        raise AssertionError(f"bnnode lotka-volterra: estimates {est}")
+
+    with _default_dtype(torch.float64):
+        system, disc = _bpinn_poisson(npde, 10, 0.2, torch.sigmoid, "jvp")
+        sol, s, _ = _sol_seconds(lambda: npde.ahmc_bayesian_pinn_pde(
+            system, disc, draw_samples=400, bcstd=[0.01] * 4, phystd=[0.05],
+            priorsNNw=(0.0, 2.0), saveats=[0.1, 0.1], n_leapfrog=20))
+    cord = sol.timepoints[0].cpu().numpy()
+    want = np.sin(np.pi * cord[0]) * np.sin(np.pi * cord[1]) / (2 * np.pi**2)
+    rms = float(np.sqrt(np.mean(
+        (sol.ensemblesol[0].mean.cpu().numpy() - want) ** 2)))
+    print(f"[bayesian] BPINN 2-D Poisson (tests/test_bpinn_pde.py:97: "
+          f"mlp([2,10,1]) sigmoid, GridTraining(0.2), 400 draws, n_leapfrog "
+          f"20), f64: {s:.2f} s ({1e3 * s / 400:.3f} ms a draw); ensemble "
+          f"mean RMS {rms:.4e} (limit {BPINN_RMS_LIMIT}); graphs "
+          f"{sol.original.statistics['cuda_graph']}")
+    if not rms < BPINN_RMS_LIMIT:
+        raise AssertionError(f"bpinn poisson: rms {rms}")
+
+    system, disc = _bpinn_poisson(npde, HIDDEN, ZOO_GRID, torch.tanh, "jet")
+    kw = dict(bcstd=[0.01] * 4, phystd=[0.05], priorsNNw=(0.0, 2.0),
+              saveats=[0.05, 0.05], n_leapfrog=BPINN_JET_LEAPFROG)
+    tj.reset_launch_counts()
+    sol, s, peak = _sol_seconds(lambda: npde.ahmc_bayesian_pinn_pde(
+        system, disc, draw_samples=BPINN_JET_DRAWS, **kw))
+    counts = tj.launch_counts()
+    graph = sol.original.statistics["cuda_graph"]
+    cord = sol.timepoints[0].cpu().numpy()
+    want = np.sin(np.pi * cord[0]) * np.sin(np.pi * cord[1]) / (2 * np.pi**2)
+    got = sol.ensemblesol[0].mean.double().cpu().numpy()
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    evals = BPINN_JET_DRAWS * BPINN_JET_LEAPFROG
+    print(f"[bayesian] kernel path: BayesianPINN(mlp([2,64,64,1]) tanh, "
+          f"GridTraining(1/31), jet) on the 2-D Poisson, {BPINN_JET_DRAWS} "
+          f"draws, n_leapfrog {BPINN_JET_LEAPFROG}, f32: {s:.2f} s, "
+          f"{1e3 * s / BPINN_JET_DRAWS:.3f} ms a draw, {evals / s:.1f} "
+          f"gradient evaluations/s, peak {peak:.3f} GiB; graphs {graph}; "
+          f"ensemble mean rel L2 {rel:.4e} (recorded, not bounded); "
+          f"launches counted (eager draw and capture) {counts}; {card}")
+    _require_launched("bpinn jet sampler", counts, "tanh_jet2_forward",
+                      "tanh_jet2_backward")
+    if graph["captures"] != 1 or graph["replays"] != BPINN_JET_DRAWS - 1:
+        raise AssertionError(f"bpinn jet: draws outside the graph: {graph}")
+    _profile_draws(system, disc, kw, 1e3 * s / BPINN_JET_DRAWS)
+    return counts
+
+
+def _profile_draws(system, disc, kw, ms_per_draw: float) -> None:
+    """Trace a short run of the jet sampler (1 eager draw, 1 capture, 11
+    replays): device busy per draw against the untraced draw time."""
+    import neuralpde_tpu_torch as npde
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 12
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        npde.ahmc_bayesian_pinn_pde(system, disc, draw_samples=n, **kw)
+        torch.cuda.synchronize()
+    busy_us = _kernel_us(prof)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    print(f"[profile] {n} draws of the jet sampler (1 eager, 1 captured, "
+          f"{n - 1} replays; the step-size search and the ensemble too): "
+          f"device busy {busy_us / n / 1e3:.3f} ms per draw against "
+          f"{ms_per_draw:.3f} ms untraced: idle share "
+          f"{1 - busy_us / n / 1e3 / ms_per_draw:.3f}; {len(kernels)} "
+          f"distinct kernels")
+    for e in kernels[:8]:
+        print(f"[profile] {100 * e.self_device_time_total / busy_us:5.1f}% "
+              f"{e.self_device_time_total / n / 1e3:8.4f} ms/draw "
+              f"{e.count // n:6d} calls/draw  {e.key[:90]}")
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1887,7 +2342,10 @@ def main() -> int:
             20: lambda: phase_zoo_card_vs_cpu(card),
             21: lambda: phase_fbpinn(card),
             22: lambda: phase_weak(card),
-            23: lambda: phase_zoo_solvers(card)}
+            23: lambda: phase_zoo_solvers(card),
+            24: lambda: phase_stochastic_card_vs_cpu(card),
+            25: lambda: phase_sde(card),
+            26: lambda: phase_bayesian(card)}
     totals: dict = {}
     for number, run in runs.items():
         LAUNCH_SHAPES.clear()

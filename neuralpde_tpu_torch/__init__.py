@@ -7,13 +7,15 @@ its step on the card, checkpoint/resume, Adam then L-BFGS), separable
 (SPINN) training, matrix-free Gauss-Newton, quadrature (integral terms,
 `QuadratureTraining`), the ODE/DAE solver surface (`solve_ode`,
 `solve_dae`, `neural_adapter`), the trial-function zoo (`FBPINN`, `kan`,
-`DGM`, `TorchModuleAdapter`) and the variational formulations (hp-VPINN
-`WeakTraining` with `refine_weak`, `DeepRitz`) for one NVIDIA H100, with
+`DGM`, `TorchModuleAdapter`), the variational formulations (hp-VPINN
+`WeakTraining` with `refine_weak`, `DeepRitz`) and the stochastic layer
+(distributions, `solve_sde`, the Fokker-Planck `SDEPINN`, HMC/NUTS and the
+Bayesian PINNs `BNNODE` and `BayesianPINN`) for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
 
-from .config import default_float, enable_x64, matmul_precision
+from .config import default_float, enable_x64, finfo_eps, matmul_precision
 from .logging_utils import (
     LogOptions, TensorBoardLogger, logscalar, logvector,
 )
@@ -48,12 +50,13 @@ from .adaptive import (
     ReLoBRaLoAdaptiveLoss, SoftAdaptAdaptiveLoss,
 )
 from .compile.discretize import (
-    PhysicsInformedNN, Phi, PINNLossFunctions, PINNRepresentation,
+    BayesianPINN, PhysicsInformedNN, Phi, PINNLossFunctions, PINNRepresentation,
     TrainingProblem, discretize, symbolic_discretize,
 )
 from .compile.lower import (
-    build_loss_function, build_residual_function, depvar_params, get_argument,
-    get_integration_variables, get_numeric_integral, get_variables,
+    build_loss_function, build_residual_function, depvar_params, free_symbols,
+    get_argument, get_integration_variables, get_numeric_integral,
+    get_variables,
 )
 from .compile.separable import SeparableTraining, build_separable_residual
 from .compile.weak import WeakTraining, refine_weak, solve_weak_adaptive
@@ -63,11 +66,17 @@ from .gauss_newton import (
     solve_gauss_newton, solve_ode_gauss_newton, trust_region_least_squares,
 )
 from .solvers import (
-    DAEProblem, DeepGalerkin, DeepRitz, NNDAE, NNODE, ODEPhi, ODEProblem,
-    ODESolution, SDEProblem, discretize_ritz, neural_adapter, solve_dae,
-    solve_ode,
+    DAEProblem, DeepGalerkin, DeepRitz, NNDAE, NNODE, NNSDE, ODEPhi,
+    ODEProblem, ODESolution, SDEPINN, SDEProblem, SDEsol, discretize_ritz,
+    neural_adapter, solve_dae, solve_ode, solve_sde, solve_sde_weak,
 )
-from .utils.pytree import parameters_to_vector, vector_to_parameters
+from .bayesian import (
+    BNNODE, BPINNsolution, BPINNstats, ahmc_bayesian_pinn_ode,
+    ahmc_bayesian_pinn_pde, ess, mcmc_summarize, solve_bnnode, split_rhat,
+)
+from .ops.distributions import LogNormal, Normal, Particles, Uniform
+from .utils.eltype import EltypeAdaptor, recursive_eltype
+from .utils.pytree import parameters_to_vector, tree_size, vector_to_parameters
 from .utils.convert import params_from_jax, params_to_numpy
 
 __version__ = "0.1.0"

@@ -129,6 +129,17 @@ class PhysicsInformedNN:
                     if self.multioutput else Phi(self.chain, matmul_precision))
 
 
+class BayesianPINN(PhysicsInformedNN):
+    """PhysicsInformedNN + dataset for HMC posterior sampling
+    (reference: src/pinn_types.jl:207-221).  ``dataset`` is
+    ``(dataset_pde, dataset_bc)``, each None or a list of per-depvar
+    arrays whose rows are (value, coordinates...)."""
+
+    def __init__(self, chain, strategy=None, *, dataset=None, **kwargs):
+        super().__init__(chain, strategy, **kwargs)
+        self.dataset = dataset if dataset is not None else (None, None)
+
+
 @dataclass
 class PINNLossFunctions:
     """Generated loss functions (reference: src/pinn_types.jl:390-416)."""

@@ -152,6 +152,15 @@ def get_integration_variables(eq: Eq) -> list:
     return out
 
 
+def free_symbols(eq: Eq) -> list:
+    """The equation's Syms, in order of first appearance."""
+    out = []
+    for node in _walk(_eq_expr(eq)):
+        if isinstance(node, Sym) and node not in out:
+            out.append(node)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Recursive evaluator
 # ---------------------------------------------------------------------------

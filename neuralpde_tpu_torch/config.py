@@ -26,6 +26,11 @@ def default_float() -> torch.dtype:
     return torch.get_default_dtype()
 
 
+def finfo_eps(dtype) -> float:
+    """Machine epsilon of ``dtype``."""
+    return float(torch.finfo(dtype).eps)
+
+
 @contextlib.contextmanager
 def matmul_precision(precision: str | None):
     """Set `torch.backends.cuda.matmul.allow_tf32` for the body and restore

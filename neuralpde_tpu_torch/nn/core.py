@@ -156,11 +156,58 @@ def _identity_series(z, zs):
     return z, list(zs)
 
 
+def _product_coeffs(a, b):
+    """Normalised coefficients of the product of two series (a[0], b[0]
+    their primals)."""
+    return [sum(a[i] * b[m - i] for i in range(m + 1)) for m in range(len(a))]
+
+
+def _relu_series(z, zs):
+    """relu' = 1 on z > 0 and 0 elsewhere (at 0 too, as JAX's and torch's
+    derivatives of relu), and every higher derivative is 0."""
+    mask = (z > 0).to(z.dtype)
+    return torch.relu(z), [mask * zk for zk in zs]
+
+
+def _softplus_series(z, zs):
+    """softplus' = sigmoid: a' = sigmoid(z) z'."""
+    zt = _normalise(zs)
+    s0, s_series = _sigmoid_series(z, zs[:-1])
+    g = [s0] + _normalise(s_series)
+    a = [softplus(z)] + [_ode_step(zt, g, k) for k in range(1, len(zs) + 1)]
+    return a[0], _denormalise(a)
+
+
+def _swish_series(z, zs):
+    """swish = z sigmoid(z): the product of two series."""
+    s0, s_series = _sigmoid_series(z, zs)
+    a = _product_coeffs([z] + _normalise(zs), [s0] + _normalise(s_series))
+    return swish(z), _denormalise(a)
+
+
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _gelu_series(z, zs):
+    """gelu (tanh form) = z (1 + tanh(c (z + 0.044715 z^3))) / 2."""
+    cz = [z] + _normalise(zs)
+    cz3 = _product_coeffs(_product_coeffs(cz, cz), cz)
+    cu = [_GELU_C * (a + 0.044715 * b) for a, b in zip(cz, cz3)]
+    t0, t_series = _tanh_series(cu[0], _denormalise(cu))
+    zt = _product_coeffs(cz, [t0] + _normalise(t_series))
+    a = [0.5 * (x + y) for x, y in zip(cz, zt)]
+    return gelu(z), _denormalise(a)
+
+
 TAYLOR_RULES: dict[Callable, Callable] = {
     tanh: _tanh_series,
     sigmoid: _sigmoid_series,
     sin: _sin_series,
     identity: _identity_series,
+    relu: _relu_series,
+    gelu: _gelu_series,
+    swish: _swish_series,
+    softplus: _softplus_series,
 }
 
 

@@ -4,3 +4,5 @@ from .dae import DAEProblem, NNDAE, solve_dae
 from .adapter import neural_adapter
 from .dgm import DeepGalerkin  # noqa: F401
 from .ritz import DeepRitz, discretize_ritz  # noqa: F401
+from .sde import NNSDE, SDEPhi, SDEsol, solve_sde  # noqa: F401
+from .sde_weak import SDEPINN, solve_sde_weak  # noqa: F401

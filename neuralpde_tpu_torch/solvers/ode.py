@@ -85,10 +85,12 @@ def _abs2(z):
 
 def _as_vector(out, like: torch.Tensor) -> torch.Tensor:
     """What a user's ``f`` returned for one time point — a tensor, a
-    number, or a list of either — as a 1-D tensor."""
+    number, or a list of either — as a 1-D tensor.  A number is filled in
+    on ``like``'s device (no copy from the host, so a step that makes one
+    can be captured as a CUDA graph)."""
     def tensor(o):
-        return o if isinstance(o, torch.Tensor) else torch.as_tensor(
-            o, dtype=None if isinstance(o, complex) else like.dtype,
+        return o if isinstance(o, torch.Tensor) else torch.full(
+            (), o, dtype=None if isinstance(o, complex) else like.dtype,
             device=like.device)
 
     if isinstance(out, (list, tuple)):

@@ -287,12 +287,24 @@ def _on_tensors(fn):
     return op
 
 
+def _pow(a, b):
+    """``a ** b``.  A Python-number exponent or base stays a number
+    (``torch.pow(Tensor, float)``, ``torch.pow(float, Tensor)``): as a
+    tensor it would carry a tangent of its own, and the backward pass through
+    ``u**e · log(u) · ė`` (ė = 0) is NaN at a negative base, as in the
+    gradient of a gPINN row.  With no tensor argument (constant folding) both
+    become float64 scalars."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.pow(a, b)
+    return torch.pow(torch.tensor(float(a), dtype=torch.float64), float(b))
+
+
 PRIMITIVES = {
     "+": lambda a, b: a + b,
     "-": lambda a, b: a - b,
     "*": lambda a, b: a * b,
     "/": lambda a, b: a / b,
-    "^": _on_tensors(torch.pow),
+    "^": _pow,
     "neg": lambda a: -a,
     "sin": _on_tensors(torch.sin),
     "cos": _on_tensors(torch.cos),

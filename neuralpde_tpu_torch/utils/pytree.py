@@ -39,3 +39,10 @@ def vector_to_parameters(vec, like: dict) -> dict:
     """Reshape flat vector `vec` into the layout of parameter dict `like`."""
     _, unravel = parameters_to_vector(like)
     return unravel(vec)
+
+
+def tree_size(params) -> int:
+    """Number of entries over all tensor leaves of nested dicts and lists."""
+    from torch.utils._pytree import tree_leaves
+
+    return sum(torch.as_tensor(x).numel() for x in tree_leaves(params))

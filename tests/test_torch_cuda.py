@@ -546,3 +546,119 @@ def test_gauss_newton_on_weak_rows_captures_its_inner_step(cuda):
     res = npde.solve_gauss_newton(prob, maxiters=3, cg_iters=20)
     assert res.aux["cuda_graph"] == {"captures": 3, "replays": 3 * 18}
     assert res.objective < res.history[0]
+
+
+# --- the stochastic layer -------------------------------------------------------
+
+def _gaussian_density(device):
+    mu = torch.tensor([1.0, -2.0], device=device)
+    sigma = torch.tensor([0.5, 2.0], device=device)
+    return lambda q: -0.5 * torch.sum(((q - mu) / sigma) ** 2)
+
+
+@pytest.mark.cuda
+def test_captured_hmc_chain_is_bit_equal_to_the_eager_chain(cuda):
+    """One draw eager, the next captured, the rest replayed, against every
+    draw eager from the same generator seed."""
+    from neuralpde_tpu_torch.bayesian import hmc
+
+    runs = []
+    for graphs in (True, False):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        runs.append(hmc.sample(_gaussian_density(cuda),
+                               torch.zeros(2, device=cuda), g, 40,
+                               n_leapfrog=15, init_step_size=0.2,
+                               graphs=graphs))
+    a, b = runs
+    assert a.aux["cuda_graph"]["captures"] == 1
+    assert a.aux["cuda_graph"]["replays"] == 39
+    assert b.aux["cuda_graph"]["captures"] == 0
+    assert torch.equal(a.samples, b.samples)
+    assert torch.equal(a.accept_prob, b.accept_prob)
+    assert torch.equal(a.inv_mass, b.inv_mass)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["hmcda", "nuts"])
+def test_captured_leapfrog_step_matches_eager(cuda, kernel):
+    """"hmcda" and "nuts" replay a captured leapfrog step: their chains
+    equal the eager ones drawn from the same seed."""
+    from neuralpde_tpu_torch.bayesian import hmc
+
+    runs = []
+    for graphs in (True, False):
+        g = torch.Generator(device=cuda).manual_seed(4)
+        runs.append(hmc.sample(_gaussian_density(cuda),
+                               torch.zeros(2, device=cuda), g, 30,
+                               kernel=kernel, init_step_size=0.3,
+                               max_depth=5, graphs=graphs))
+    a, b = runs
+    assert a.aux["cuda_graph"]["captures"] == 1
+    assert a.aux["cuda_graph"]["replays"] > 30
+    torch.testing.assert_close(a.samples, b.samples, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_captured_stochastic_sde_step_draws_fresh_points(cuda):
+    """`StochasticTraining` SDE steps replay one captured graph that draws
+    fresh t and z from the solve's generator: the losses of 8 steps equal
+    those of 8 eager steps from the same seed."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.solvers.ode import _SimpleProblem
+    from neuralpde_tpu_torch.solvers.sde import build_sde_loss
+
+    prob = npde.SDEProblem(f=lambda u, p, t: -u, g=lambda u, p, t: 0.1,
+                           u0=0.5, tspan=(0.0, 1.0))
+    alg = npde.NNSDE(npde.mlp([3, 8, 1]), npde.adam(1e-2), sub_batch=4,
+                     strategy=npde.StochasticTraining(16))
+    total_loss, theta0, _, _ = build_sde_loss(prob, alg)
+    res = npde.solve(_SimpleProblem(total_loss, theta0), npde.adam(1e-2),
+                     maxiters=8, seed=2)
+    assert res.aux["cuda_graph"]["replays"] == 7
+    step = npde.make_step(_SimpleProblem(total_loss, theta0).loss,
+                          npde.adam(1e-2))
+    carry = step.init(theta0, {})
+    g = torch.Generator(device=cuda).manual_seed(2)
+    eager = []
+    for _ in range(8):
+        carry, (loss, _) = step(carry, g)
+        eager.append(float(loss))
+    np.testing.assert_allclose(res.history, eager, rtol=1e-5)
+    fixed = torch.Generator(device=cuda)
+    again = [float(total_loss(theta0, fixed.manual_seed(2)))
+             for _ in range(2)]
+    assert again[0] == again[1] and len(set(eager)) == 8
+
+
+@pytest.mark.cuda
+def test_bpinn_jet_gradient_matches_the_plain_version(cuda):
+    """The BPINN log-density's gradient through `tanh_jet2` (kernel
+    forward and backward) against the same density on the plain version
+    (nested jvp, no kernel) at mlp([2,64,64,1]), float64."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+    from neuralpde_tpu_torch.bayesian.pde import PDELogTargetDensity
+
+    out, init = {}, None
+    for derivative in ("jet", "jvp"):
+        disc = npde.BayesianPINN(npde.mlp([2, 64, 64, 1], dtype=torch.float64),
+                                 npde.GridTraining(1 / 31),
+                                 derivative=derivative, dtype=torch.float64,
+                                 init_params=init)
+        rep = npde.symbolic_discretize(poisson_2d_system(), disc)
+        init = {k: v.clone() for k, v in rep.init_params.items()}
+        ltd = PDELogTargetDensity(rep, None, npde.Normal(0.0, 2.0), [],
+                                  ([0.05], [0.01] * 4, []), [0.05])
+        q = ltd.init_flat_nn.clone().requires_grad_(True)
+        before = dict(tj.launch_counts())
+        v = ltd(q)
+        (grad,) = torch.autograd.grad(v, q)
+        torch.cuda.synchronize()
+        counts = {k: n - before[k] for k, n in tj.launch_counts().items()}
+        out[derivative] = (v.detach(), grad, counts)
+    (vj, gj, cj), (vp, gp, cp) = out["jet"], out["jvp"]
+    assert cj["tanh_jet2_forward"] > 0 and cj["tanh_jet2_backward"] > 0
+    assert not any(cp.values())
+    torch.testing.assert_close(vj, vp, rtol=1e-12, atol=0)
+    torch.testing.assert_close(gj, gp, rtol=1e-10, atol=1e-10 * float(
+        gp.abs().max()))

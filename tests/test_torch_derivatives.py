@@ -71,7 +71,8 @@ def test_engine_matches_jax_f32(mode, partial):
 
 
 @pytest.mark.parametrize("order", [1, 2, 3, 4])
-@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin"])
+@pytest.mark.parametrize("activation", ["tanh", "sigmoid", "sin", "gelu",
+                                        "swish"])
 def test_taylor_rules_match_jax_jet(activation, order):
     """A whole Chain's Taylor pass against jax.experimental.jet, every output
     coefficient, including the plain recurrences (orders other than 2)."""
@@ -85,15 +86,36 @@ def test_taylor_rules_match_jax_jet(activation, order):
         assert rel_err(got[k].detach().numpy(), want[k]) < 1e-10
 
 
-def test_module_without_taylor_rule_takes_nested_jvp():
-    """softplus has no Taylor rule: jet mode differentiates it by nested jvp,
-    a static choice, and gives the JAX package's exact value (JAX's own jet
-    has no rule for softplus either, so the reference value is its jvp)."""
-    (uj, xj), (ut, xt) = _pair(torch.float64, activation="softplus", seed=2)
-    assert not ut.has_taylor_rule
-    want = np.asarray(JaxEngine("jvp")(uj, xj, [0, 0], 2))
-    got = DerivativeEngine("jet")(ut, xt, [0, 0], 2).detach().numpy()
+@pytest.mark.parametrize("partial", [(0,), (0, 0), (0, 1), (1, 1, 1),
+                                     (0, 0, 1, 1)], ids=str)
+@pytest.mark.parametrize("activation", ["relu", "softplus"])
+def test_taylor_rules_of_relu_and_softplus_match_jax_jvp(activation, partial):
+    """relu and softplus have Taylor rules in the port; the JAX package's
+    jet raises on them, so its nested jvp is the reference."""
+    (uj, xj), (ut, xt) = _pair(torch.float64, activation=activation, seed=3)
+    assert ut.has_taylor_rule
+    want = np.asarray(JaxEngine("jvp")(uj, xj, list(partial), 2))
+    got = DerivativeEngine("jet")(ut, xt, list(partial), 2).detach().numpy()
     assert rel_err(got, want) < 1e-10
+
+
+def test_module_without_taylor_rule_takes_nested_jvp():
+    """An activation with no Taylor rule (here a lambda around softplus):
+    jet mode differentiates the net by nested jvp, a static choice, and
+    gives the JAX package's exact value."""
+    rng = np.random.default_rng(2)
+    tree = mlp_params(rng, [2, 16, 16, 1])
+    x = rng.uniform(0, 1, (2, 17))
+    jnet = jcore.mlp([2, 16, 16, 1], lambda z: jcore.softplus(z))
+    tnet = tcore.mlp([2, 16, 16, 1], lambda z: tcore.softplus(z),
+                     dtype=torch.float64)
+    ut = tcore.TrialFunction(tnet, params_from_jax(tree, dtype=torch.float64))
+    assert not ut.has_taylor_rule
+    want = np.asarray(JaxEngine("jvp")(
+        lambda c: jnet.apply(jax.tree.map(jnp.asarray, tree), c),
+        jnp.asarray(x), [0, 0], 2))
+    got = DerivativeEngine("jet")(ut, torch.tensor(x), [0, 0], 2)
+    assert rel_err(got.detach().numpy(), want) < 1e-10
 
 
 def test_unknown_mode_raises():

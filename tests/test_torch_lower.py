@@ -139,3 +139,12 @@ def test_get_argument_and_variables_match_jax():
                 == [repr(a) for a in tpkg.get_argument(teq, ["u"])])
         assert ([a.name for a in jpkg.get_variables(jeq, ["u"])]
                 == [a.name for a in tpkg.get_variables(teq, ["u"])])
+
+
+def test_free_symbols_match_jax():
+    from neuralpde_tpu.compile.lower import free_symbols as jfree
+
+    jsys, tsys = poisson_2d(jpkg), poisson_2d(tpkg)
+    for jeq, teq in zip(jsys.eqs + jsys.bcs, tsys.eqs + tsys.bcs):
+        assert ([s.name for s in jfree(jeq)]
+                == [s.name for s in tpkg.free_symbols(teq)])

@@ -99,3 +99,36 @@ def test_reset_parameters_is_seeded():
     w = net_a.layer_0.weight.detach()
     assert float(w.abs().max()) <= np.sqrt(6.0 / 18)
     assert float(net_a.layer_0.bias.detach().abs().max()) == 0.0
+
+
+def test_eltype_adaptor_and_tree_helpers_match_jax():
+    """`EltypeAdaptor` leaf by leaf on nested dicts and lists (float32,
+    float64, complex and integer leaves), `recursive_eltype` (the widest
+    inexact dtype), `tree_size` and `finfo_eps`, against the JAX package."""
+    import neuralpde_tpu as jpkg
+    import neuralpde_tpu_torch as tpkg
+
+    rng = np.random.default_rng(0)
+    a, b = rng.normal(size=(2, 3)), rng.normal(size=4)
+    c, i = rng.normal(size=2) + 1j * rng.normal(size=2), np.arange(3)
+    jtree = {"a": jnp.asarray(a, jnp.float32),
+             "b": [jnp.asarray(b, jnp.float64), {"i": jnp.asarray(i, jnp.int32)}]}
+    ttree = {"a": torch.tensor(a, dtype=torch.float32),
+             "b": [torch.tensor(b, dtype=torch.float64),
+                   {"i": torch.tensor(i, dtype=torch.int32)}]}
+    assert tpkg.recursive_eltype(ttree) == torch.float64
+    assert jpkg.recursive_eltype(jtree) == jnp.float64
+    jc = {**jtree, "c": jnp.asarray(c, jnp.complex64)}
+    tc = {**ttree, "c": torch.tensor(c, dtype=torch.complex64)}
+    assert str(jpkg.recursive_eltype(jc)) == "complex128"
+    assert tpkg.recursive_eltype(tc) == torch.complex128
+    for jd, td in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+        jout, tout = jpkg.EltypeAdaptor(jd)(jtree), tpkg.EltypeAdaptor(td)(ttree)
+        assert tout["a"].dtype == tout["b"][0].dtype == td
+        assert tout["b"][1]["i"].dtype == torch.int32     # ints untouched
+        np.testing.assert_array_equal(tout["a"].numpy(), np.asarray(jout["a"]))
+        np.testing.assert_array_equal(tout["b"][0].numpy(),
+                                      np.asarray(jout["b"][0]))
+    assert tpkg.tree_size(ttree) == jpkg.utils.pytree.tree_size(jtree) == 13
+    for jd, td in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+        assert tpkg.finfo_eps(td) == jpkg.config.finfo_eps(jd)

@@ -333,6 +333,42 @@ def test_gradient_enhanced_matches_jax(route):
     assert abs(loss - _loss_and_grad(plain, 2)[0]) > 1e-6
 
 
+def cubic_system(pkg):
+    """Dt(u) ~ u**3 on [0, 1], u(0) = -1: a power of the network output."""
+    t = pkg.symbols("t")
+    u = pkg.DepVar("u")
+    return pkg.PDESystem(pkg.Eq(pkg.Differential(t)(u(t)), u(t) ** 3),
+                         [pkg.Eq(u(0.0), -1.0)],
+                         [pkg.Domain(t, pkg.Interval(0, 1))], [t], [u(t)])
+
+
+@pytest.mark.parametrize("derivative", ["jvp", "jet"])
+def test_gradient_enhanced_power_of_the_output_matches_jax(derivative):
+    """gPINN rows of ``u**3`` at negative u: the exponent stays a Python
+    number, so the backward pass through the rows' tangent is finite (a
+    tensor exponent made every gradient NaN) and equals the JAX package's."""
+    tree = _tree(jpkg.mlp([1, 8, 8, 1]), 11)
+    tree["layer_2"]["weight"] = 0.3 * tree["layer_2"]["weight"]
+    tree["layer_2"]["bias"] = np.full((1, 1), -2.0)
+    kw = dict(derivative=derivative, gradient_enhanced=0.3)
+    jprob = jpkg.discretize(cubic_system(jpkg), jpkg.PhysicsInformedNN(
+        jpkg.mlp([1, 8, 8, 1]), jpkg.GridTraining(0.1), init_params=tree,
+        dtype=jnp.float64, **kw))
+    tprob = tpkg.discretize(cubic_system(tpkg), tpkg.PhysicsInformedNN(
+        tpkg.mlp([1, 8, 8, 1], dtype=F64), tpkg.GridTraining(0.1),
+        init_params=tpkg.params_from_jax(tree), dtype=F64, device="cpu",
+        **kw))
+    u = jprob.pinnrep.phi(jnp.linspace(0, 1, 11)[None, :],
+                          jprob.init_params["depvar"])
+    assert bool(jnp.all(u < 0))
+    loss, grad = _loss_and_grad(tprob, 1)
+    jloss, jgrad = _jax_loss_and_grad(jprob, 1)
+    assert np.isfinite(loss) and np.isfinite(jloss)
+    assert all(bool(torch.isfinite(g).all()) for g in grad.values())
+    assert rel_err(loss, jloss) < 1e-10
+    _assert_grads(grad, jgrad, 1e-10)
+
+
 @pytest.mark.parametrize("strategy", ["separable", "grid"])
 def test_remat_matches_plain_and_jax(strategy):
     if strategy == "separable":
