@@ -13,9 +13,10 @@ accuracy recipes, matrix-free Gauss-Newton, the integro-differential path
 (integral terms by batched Gauss-Legendre quadrature, `QuadratureTraining`)
 the ODE/DAE solver surface, the trial-function zoo (FBPINN, KAN, DGM,
 a wrapped `torch.nn.Module`) with the variational formulations (hp-VPINN
-`WeakTraining`, Deep Ritz), and the stochastic layer (SDE solvers, HMC/NUTS,
-the Bayesian PINNs), in phases that each print their own lines, their
-seconds, and raise on failure:
+`WeakTraining`, Deep Ritz), the stochastic layer (SDE solvers, HMC/NUTS,
+the Bayesian PINNs) and the operator layer (DeepONet, FNO, PINOODE,
+PINOPDE, ensembles), in phases that each print their own lines, their
+seconds and the memory left allocated, and raise on failure:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
 2. build: the kernel library from `neuralpde_tpu_torch/csrc/` with nvcc;
@@ -100,9 +101,28 @@ seconds, and raise on failure:
     Lotka-Volterra BNNODE at full size (float64, as the test runs it), the
     2-D Poisson BPINN of tests/test_bpinn_pde.py, and the same Poisson as
     `BayesianPINN(mlp([2,64,64,1]), derivative="jet")`, whose draws launch
-    `tanh_jet2`, with a profile of its draws.
+    `tanh_jet2`, with a profile of its draws;
+27. operators card vs CPU: the spectral layers at odd and even sizes on
+    random weights (mixed spectra that are not Hermitian), the FNOs, the
+    DeepONets, the PINOODE losses, the Navier-Stokes PINOPDE loss (FD,
+    spectral x/y, causal) and a jvp and a vjp of its residual vector;
+28. PINOODE: the du/dt = cos(p t) family with the w128 DeepONet at 65,536
+    points a step, the FNO1D of tests/test_fno.py and its Gauss-Newton
+    driver, each held to that test's bound;
+29. PINOPDE, the operator layer's main path: the Navier-Stokes vorticity
+    operator of the reference's base-fd row (FNO3D w16 m(8,8,4) d3, 33^2 x 9
+    grid, 12 GRF ICs, 8,000 steps) scored on the 8 held-out ICs, a traced
+    window of replayed steps, the step's device time by operator, the TF32
+    question of the complex einsum; the heat family, the resampled IC
+    operator, the Gauss-Newton polish and the DeepONetPDE family of
+    tests/test_pino_pde.py, each held to that test's bound;
+30. ensembles: `solve_pino_pde_ensemble(n_ensemble=8)` on the heat family
+    (member 0 against a solo solve from its parameters, ms a step against
+    the solo solve) and `solve_ensemble(n_ensemble=8)` on
+    scripts/measure_ensemble_tpu.py's 2-D Poisson against a solo solve.
+    Phases 27-30 take no Taylor jets and launch no kernel (checked).
 
-Phases 9, 11 to 19 and 21 to 23 train through `solve`, which on the card runs each
+Phases 9, 11 to 19, 21 to 23 and 28 to 30 train through `solve`, which on the card runs each
 kind of step once as it is, then captures it as a CUDA graph and replays
 it: a counter sees the eager step and the capture, not the replays.  So
 the JSON line of kernels sums the launches of the eager paths (phases 5, 6,
@@ -111,14 +131,16 @@ draws replay a captured graph too), which set the counts to 0 just
 before each of their solves or samplers, read them just after and require the forward
 and backward kernels in them (the eager step and the capture) wherever the
 path takes second derivatives by Taylor mode; every other graph phase, like
-phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart.  The last line is
+phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart; phases 27 to
+30 print theirs, which must be 0.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 
 Cuts against the recipes, each named where its phase prints: phase 11 runs
 1000 of the separable stage's 15,000 steps, phase 13 10,000 of the dense
 stage's 333,000, phase 21's Laplace problem the steps that 20 s allow of
-30,000, phase 23's Burgers example 1,500 of 5,000.
+30,000, phase 23's Burgers example 1,500 of 5,000; phase 27's Navier-Stokes
+check trains no step and takes 2 of the 12 family members.
 """
 
 from __future__ import annotations
@@ -297,12 +319,20 @@ def _event_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _kernel_us(prof) -> float:
-    """Sum of the device kernels' own times in a profiler trace, in us."""
+def _device_events(prof) -> list:
+    """The device's own events of a profiler trace (kernels, copies,
+    fills), without the ranges that annotate them (a captured step's
+    ``Optimizer.step`` range would count its kernels twice)."""
     from torch.autograd import DeviceType
 
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _kernel_us(prof) -> float:
+    """Sum of the device kernels' own times in a profiler trace, in us."""
+    return sum(e.self_device_time_total for e in _device_events(prof))
 
 
 def _device_ms(fn, iters: int = 50) -> float:
@@ -545,7 +575,6 @@ def _profile(step, carry, generator, step_s: float) -> None:
     """Trace two main-path steps: the device's busy time per step against
     the untraced step time ``step_s``, and the kernels with the most device
     time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -554,8 +583,7 @@ def _profile(step, carry, generator, step_s: float) -> None:
         for _ in range(2):
             carry, _ = step(carry, generator)
         torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(_device_events(prof),
                      key=lambda e: -e.self_device_time_total)
     busy_us = _kernel_us(prof)
     print(f"[profile] device busy {busy_us / 2e3:.2f} ms per step against "
@@ -799,7 +827,7 @@ def phase_dense_solve(card: str) -> None:
     from neuralpde_tpu_torch import adam, make_step, solve
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     from neuralpde_tpu_torch.ops.sampling import uniform_random
-    from neuralpde_tpu_torch.train import GraphedSteps
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
 
     drawn = torch.zeros((2, 8), device="cuda")
 
@@ -852,7 +880,7 @@ def phase_dense_solve(card: str) -> None:
     runner = GraphedSteps(step, carry,
                           torch.Generator(device="cuda").manual_seed(0))
     seen = []
-    with torch.cuda.stream(torch.cuda.Stream()):
+    with _side_stream(drawn):
         for i in range(3):
             runner(i)
             seen.append(drawn.clone())
@@ -900,22 +928,20 @@ def phase_dense_solve(card: str) -> None:
 def _profile_block(runner, start: int, n: int, step_s: float) -> None:
     """Trace ``n`` replays of a warmed `GraphedSteps`: the device's busy
     time per step against the untraced step time ``step_s``."""
-    from torch.autograd import DeviceType
+    from neuralpde_tpu_torch.train import _side_stream
     from torch.profiler import ProfilerActivity, profile
 
-    side = torch.cuda.Stream()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with torch.cuda.stream(side):
+        with _side_stream(next(iter(runner.theta.values()))):
             for i in range(start, start + n):
                 runner(i)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     busy_us = _kernel_us(prof)
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(_device_events(prof),
                      key=lambda e: -e.self_device_time_total)
     print(f"[profile] one block of {n} replays: device busy "
           f"{busy_us / n / 1e3:.2f} ms per step against {step_s * 1e3:.2f} "
@@ -933,7 +959,6 @@ def _profile_solve(prob, optimizer, steps: int, block: int,
     replays): the device's busy time per step against the untraced step
     time ``step_s`` of a long solve, and the kernels with the most time."""
     from neuralpde_tpu_torch import solve
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -942,8 +967,7 @@ def _profile_solve(prob, optimizer, steps: int, block: int,
         solve(prob, optimizer, maxiters=steps, inner_steps=block)
         torch.cuda.synchronize()
     busy_us = _kernel_us(prof)
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(_device_events(prof),
                      key=lambda e: -e.self_device_time_total)
     print(f"[profile] a solve of {steps} steps (1 eager, {steps - 1} "
           f"replayed): device busy {busy_us / steps / 1e3:.3f} ms per step "
@@ -1949,11 +1973,12 @@ def _value_grad_norm(fn, theta) -> tuple[float, float]:
     return float(v.detach()), float(g.double().norm())
 
 
-def _card_vs_cpu_line(what, cpu, card) -> None:
+def _card_vs_cpu_line(what, cpu, card,
+                      tag: str = "stochastic-card-vs-cpu") -> None:
     (cl, cn), (gl, gn) = cpu, card
     d_loss = abs(gl - cl) / max(abs(cl), 1e-30)
     d_norm = abs(gn - cn) / max(abs(cn), 1e-30)
-    print(f"[stochastic-card-vs-cpu] {what}: value {gl:.9g} vs {cl:.9g} (rel "
+    print(f"[{tag}] {what}: value {gl:.9g} vs {cl:.9g} (rel "
           f"{d_loss:.2e}), grad norm {gn:.9g} vs {cn:.9g} (rel {d_norm:.2e}); "
           f"limits {CARD_VS_CPU_RTOL}")
     if not all(map(math.isfinite, (cl, cn, gl, gn))):
@@ -2285,7 +2310,6 @@ def _profile_draws(system, disc, kw, ms_per_draw: float) -> None:
     """Trace a short run of the jet sampler (1 eager draw, 1 capture, 11
     replays): device busy per draw against the untraced draw time."""
     import neuralpde_tpu_torch as npde
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     n = 12
@@ -2295,8 +2319,7 @@ def _profile_draws(system, disc, kw, ms_per_draw: float) -> None:
         npde.ahmc_bayesian_pinn_pde(system, disc, draw_samples=n, **kw)
         torch.cuda.synchronize()
     busy_us = _kernel_us(prof)
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
+    kernels = sorted(_device_events(prof),
                      key=lambda e: -e.self_device_time_total)
     print(f"[profile] {n} draws of the jet sampler (1 eager, 1 captured, "
           f"{n - 1} replays; the step-size search and the ensemble too): "
@@ -2310,10 +2333,597 @@ def _profile_draws(system, disc, kw, ms_per_draw: float) -> None:
               f"{e.count // n:6d} calls/draw  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The operator layer (phases 27-30)
+# ---------------------------------------------------------------------------
+
+NS_STEPS = 8_000                # scripts/measure_ns_operator_tpu.py's budget
+NS_BLOCK = 50
+NS_NODES = 33                   # the base-fd row: 33^2 x 9
+NS_LIMIT = 0.075                # mean rel L2 over the 8 held-out ICs
+NS_JAX = 0.0521                 # the reference's base-fd row (TPU v5e)
+# the JAX package's own tests' bounds: tests/test_fno.py:104,131 (mean rel
+# error of the PINOODE family), tests/test_solvers_extra.py:86 (the
+# DeepONet family), tests/test_pino_pde.py:527,466,569,684 (heat family,
+# resampled IC operator, GN polish factor, DeepONetPDE)
+PINO_ODE_LIMIT = 0.08
+HEAT_LIMIT = 0.15
+RESAMPLE_LIMIT = 0.12
+GN_POLISH_FACTOR = 10.0
+ENSEMBLE_RTOL = 1e-5            # member 0 against a solo solve, float32
+
+
+def _operator_sum(module, params, x, cot):
+    """<module(x), cot> of the module's parameters ``params``."""
+    from torch.func import functional_call
+
+    return (functional_call(module, params, (x,)) * cot).sum()
+
+
+def _flat_value_grad(fn, params) -> tuple[float, float]:
+    """Value and gradient norm of ``fn(params)`` in every parameter."""
+    theta = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+    v = fn(theta)
+    grads = torch.autograd.grad(v, list(theta.values()), allow_unused=True)
+    norm = math.sqrt(sum(float(g.double().norm()) ** 2
+                         for g in grads if g is not None))
+    return float(v.detach()), norm
+
+
+def _on(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_on(t, device) for t in tree)
+    return {k: _on(v, device) for k, v in tree.items()}
+
+
+def _ns_alg(npde, *, width=16, modes=(8, 8, 4), depth=3, nodes=NS_NODES,
+            members=12, **kw):
+    """The NS vorticity operator of scripts/measure_ns_operator_tpu.py's
+    base-fd row (the phase-27 check cuts the family to 2 members)."""
+    from neuralpde_tpu_torch import accuracy
+
+    system, w0 = accuracy.ns_vorticity_system()
+    x, y = system.ivs[0], system.ivs[1]
+    if kw.pop("spectral", False):
+        kw["spectral_axes"] = (x, y)
+    kw.setdefault("additional_loss", accuracy.ns_gauge)
+    alg = npde.PINOPDE(
+        chain=npde.FNO3D(1, width=width, modes=modes, depth=depth,
+                         out_channels=2),
+        opt=npde.adam(2e-3), number_of_parameters=members,
+        input_functions={w0: accuracy.zero_mean_grf()},
+        strategy=npde.GridTraining([1 / (nodes - 1), 1 / (nodes - 1),
+                                    accuracy.NS["tmax"] / 8]), **kw)
+    return system, alg
+
+
+def phase_operators_card_vs_cpu(card: str) -> dict:
+    """The operator layer on the card against the CPU, from the same
+    parameters and inputs (made once on the CPU): the spectral layers at
+    odd and even sizes on random weights (their mixed spectra are not
+    Hermitian), the FNOs, the DeepONets, the PINOODE loss (FNO, DeepONet),
+    the NS PINOPDE loss (FD, spectral x/y, causal), and a jvp and a vjp of
+    the NS residual vector."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from neuralpde_tpu_torch.solvers import pino, pino_pde
+
+    tj.reset_launch_counts()
+    gen = torch.Generator().manual_seed(27)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def module_case(what, module, x):
+        module.reset_parameters(gen)
+        params = {k: v.detach().clone() for k, v in module.named_parameters()}
+        with torch.no_grad():
+            cot = torch.randn(module(x).shape, generator=gen)
+        vals = [_flat_value_grad(lambda th, d=d: _operator_sum(
+            module, th, _on(x, d), cot.to(d)), _on(params, d))
+            for d in ("cpu", "cuda")]
+        _card_vs_cpu_line(what, *vals, tag="operators-card-vs-cpu")
+
+    for n in (15, 16):
+        module_case(f"SpectralConv1D T={n}",
+                    npde.SpectralConv1D(4, 5, 64), randn(4, n, 3))
+        module_case(f"SpectralConv2D {n}x{n - 3}",
+                    npde.SpectralConv2D(3, 4, (64, 5)), randn(3, n, n - 3, 2))
+        module_case(f"SpectralConv3D {n}x{n - 1}x{n - 6}",
+                    npde.SpectralConv3D(2, 3, (5, 5, 64)),
+                    randn(2, n, n - 1, n - 6, 2))
+    grids = lambda *ns: tuple(torch.linspace(0, 1, n) for n in ns)  # noqa: E731
+    module_case("FNO1D w16 m8 d3", npde.FNO1D(1, 16, 8, 3),
+                (randn(1, 40), torch.linspace(0, 1, 21)[None]))
+    module_case("FNO2D w16 m6 d2 field input",
+                npde.FNO2D(1, width=16, modes=6, depth=2),
+                (randn(1, 17, 17, 10), grids(17, 17)))
+    module_case("FNO3D w16 m(8,8,4) d3",
+                npde.FNO3D(1, width=16, modes=(8, 8, 4), depth=3,
+                           out_channels=2),
+                (randn(1, 33, 33, 9, 2), grids(33, 33, 9)))
+    module_case("DeepONet w128", npde.DeepONet(npde.mlp([1, 128, 128, 128]),
+                                               npde.mlp([1, 128, 128, 128])),
+                (randn(1, 64), torch.rand(1, 64, generator=gen)))
+    module_case("DeepONetPDE", npde.DeepONetPDE(1, 2, latent=32,
+                                                branch_sizes=(32,),
+                                                trunk_sizes=(32, 32)),
+                (randn(1, 10), grids(17, 17)))
+
+    prob = npde.ODEProblem(lambda u, p, t: torch.cos(p * t), 1.0, (0.0, 1.0))
+    for what, chain, p, t in [
+            ("PINOODE FNO1D loss", npde.FNO1D(1, 16, 8, 3),
+             torch.linspace(0.1, 2, 40)[None], torch.linspace(0, 1, 21)[None]),
+            ("PINOODE DeepONet loss", npde.DeepONet(
+                npde.mlp([1, 128, 128, 128]), npde.mlp([1, 128, 128, 128])),
+             0.1 + 1.9 * torch.rand(1, 64, generator=gen),
+             torch.rand(1, 64, generator=gen))]:
+        chain.reset_parameters(gen)
+        params = {f"depvar.{k}": v.detach().clone()
+                  for k, v in chain.named_parameters()}
+        phi = pino.PINOPhi(chain)
+        vals = [_flat_value_grad(lambda th, d=d: pino._losses(
+            phi, prob, p.to(d), t.to(d), th), _on(params, d))
+            for d in ("cpu", "cuda")]
+        _card_vs_cpu_line(what, *vals, tag="operators-card-vs-cpu")
+
+    for what, kw in [("PINOPDE NS 33^2x9, 2 members, FD", {}),
+                     ("PINOPDE NS, spectral_axes=(x, y)", {"spectral": True}),
+                     ("PINOPDE NS, causal_eps=1", {"causal_eps": 1.0})]:
+        system, alg = _ns_alg(npde, members=2, **kw)
+        built = [pino_pde._build(system, alg, d) for d in ("cpu", "cuda")]
+        theta0 = built[0].theta0
+        vals = [_flat_value_grad(lambda th, b=b: b.total_loss(th, None),
+                                 _on(theta0, b.device)) for b in built]
+        _card_vs_cpu_line(what, *vals, tag="operators-card-vs-cpu")
+
+    # Gauss-Newton takes no additional loss: the residual rows alone
+    system, alg = _ns_alg(npde, members=2, additional_loss=None)
+    out = []
+    for d in ("cpu", "cuda"):
+        r_fn, theta0, _ = npde.build_pino_pde_residual_vector(system, alg,
+                                                              device=d)
+        if d == "cpu":
+            g2 = torch.Generator().manual_seed(5)
+            tangent = {k: torch.randn(v.shape, generator=g2)
+                       for k, v in theta0.items()}
+            cot = torch.randn(r_fn(theta0).shape, generator=g2)
+        primal = _on({k: v.detach() for k, v in theta0.items()}, d)
+        r, jv = torch.func.jvp(r_fn, (primal,), (_on(tangent, d),))
+        (jtu,) = torch.func.vjp(r_fn, primal)[1](cot.to(d))
+        out.append((r.cpu(), jv.cpu(),
+                    torch.cat([v.reshape(-1) for v in jtu.values()]).cpu()))
+    for name, a, b in zip(("residual", "jvp", "vjp"), *out):
+        rel = float((b - a).abs().max() / a.abs().max())
+        print(f"[operators-card-vs-cpu] NS residual vector {name}: max abs "
+              f"difference {rel:.2e} of the largest entry "
+              f"({a.numel()} entries; limit {CARD_VS_CPU_RTOL['grad_norm']})")
+        if not rel <= CARD_VS_CPU_RTOL["grad_norm"]:
+            raise AssertionError(f"NS residual {name}: card disagrees")
+    counts = tj.launch_counts()
+    print(f"[operators-card-vs-cpu] tanh_jet2 launches {counts} (no Taylor "
+          f"jets on the operator path); {card}")
+    _require_counts("operators card vs CPU", counts, False)
+    return counts
+
+
+def _pino_solve_line(what, sol, seconds, steps, points=None):
+    g = sol.original.aux["cuda_graph"]
+    rate = (f", {points * steps / seconds:.6g} points/s" if points else "")
+    return (f"{what}: {steps} steps in {seconds:.2f} s ({1e3 * seconds / steps:.3f} "
+            f"ms a step over the run, eager step and capture included{rate}); "
+            f"{g['captures']} capture(s) in {g['capture_seconds']:.3f} s, "
+            f"{g['replays']} replays")
+
+
+def _mean_rel(sol, ps, ts) -> float:
+    pred = sol(ps[None, :], ts[None, :]).cpu().numpy()
+    want = 1.0 + np.sin(ps[None, :] * ts[:, None]) / ps[None, :]
+    return float(np.mean(np.abs(pred - want) / np.abs(want)))
+
+
+def phase_pino_ode(card: str) -> dict:
+    """`solve_pino_ode` on the du/dt = cos(p t) family: the DeepONet at the
+    reference's throughput width (w128, 256 x 256 (p, t) points a step),
+    the FNO1D of tests/test_fno.py:84 and `solve_pino_gauss_newton` at
+    tests/test_fno.py:118's configuration (float64, as that test runs)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    tj.reset_launch_counts()
+    prob = npde.ODEProblem(lambda u, p, t: torch.cos(p * t), 1.0, (0.0, 1.0))
+    ps, ts = np.linspace(0.2, 1.9, 20), np.linspace(0.0, 1.0, 21)
+
+    alg = npde.PINOODE(npde.DeepONet(npde.mlp([1, 128, 128, 128]),
+                                     npde.mlp([1, 128, 128, 128])),
+                       npde.adam(3e-3), bounds=[(0.1, 2.0)],
+                       number_of_parameters=256,
+                       strategy=npde.StochasticTraining(256))
+    steps = 3_000
+    sol, seconds, peak = _sol_seconds(lambda: npde.solve_pino_ode(
+        prob, alg, maxiters=steps, inner_steps=100, abstol=0.0))
+    rel = _mean_rel(sol, ps, ts)
+    print(f"[pino-ode] " + _pino_solve_line(
+        "DeepONet branch/trunk 1->128^3, StochasticTraining(256) x 256 "
+        "parameters (65,536 points a step), Adam 3e-3, f32", sol, seconds,
+        steps, 65_536) + f"; peak {peak:.3f} GiB; mean rel error "
+          f"{rel:.4e} against 1 + sin(p t)/p (limit {PINO_ODE_LIMIT}); {card}")
+    _require_graph("pino-ode DeepONet", sol.original, eager=1)
+    if not rel < PINO_ODE_LIMIT:
+        raise AssertionError(f"pino-ode DeepONet: mean rel error {rel}")
+
+    alg = npde.PINOODE(npde.FNO1D(1, width=16, modes=8, depth=3),
+                       npde.adam(5e-3), bounds=[(0.1, 2.0)],
+                       number_of_parameters=40,
+                       strategy=npde.GridTraining(0.05))
+    sol, seconds, _ = _sol_seconds(lambda: npde.solve_pino_ode(
+        prob, alg, maxiters=steps, inner_steps=25, abstol=0.0))
+    rel = _mean_rel(sol, ps, ts)
+    print(f"[pino-ode] " + _pino_solve_line(
+        "FNO1D w16 m8 d3, GridTraining(0.05) x 40 parameters, Adam 5e-3, "
+        "f32", sol, seconds, steps) + f"; mean rel error {rel:.4e} (limit "
+          f"{PINO_ODE_LIMIT})")
+    _require_graph("pino-ode FNO1D", sol.original, eager=1)
+    if not rel < PINO_ODE_LIMIT:
+        raise AssertionError(f"pino-ode FNO1D: mean rel error {rel}")
+
+    with _default_dtype(torch.float64):
+        alg = npde.PINOODE(npde.FNO1D(1, width=8, modes=6, depth=2),
+                           bounds=[(0.5, 1.5)], number_of_parameters=16,
+                           strategy=npde.GridTraining(0.1))
+        sol, seconds, _ = _sol_seconds(lambda: npde.solve_pino_gauss_newton(
+            prob, alg, maxiters=40))
+        ps2, ts2 = np.linspace(0.6, 1.4, 8), np.linspace(0.0, 1.0, 11)
+        rel = _mean_rel(sol, ps2, ts2)
+    g = sol.original.aux["cuda_graph"]
+    print(f"[pino-ode] solve_pino_gauss_newton FNO1D w8 m6 d2, 16 x 11 grid, "
+          f"f64: {sol.original.iterations} outer iterations in {seconds:.2f} s, "
+          f"objective {sol.original.objective:.4e}, mean rel error {rel:.4e} "
+          f"(limit {PINO_ODE_LIMIT}); inner graphs {g}")
+    if not rel < PINO_ODE_LIMIT:
+        raise AssertionError(f"pino-ode GN: mean rel error {rel}")
+    counts = tj.launch_counts()
+    print(f"[pino-ode] tanh_jet2 launches {counts}")
+    _require_counts("pino-ode", counts, False)
+    return counts
+
+
+def _ns_share(prof, steps: int) -> None:
+    """The NS step's device time by operator, from eager steps (a replayed
+    graph's kernels carry no operator): the complex mixing GEMMs
+    (`aten::bmm`, forward and backward: the only batched GEMMs of the
+    step), the einsums' own copies, cuFFT, the pointwise real GEMMs."""
+    from torch.autograd import DeviceType
+
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    total = sum(e.self_device_time_total for e in ops)
+
+    def share(pred):
+        return sum(e.self_device_time_total for e in ops if pred(e.key))
+
+    groups = {
+        "complex mixing GEMMs (aten::bmm)": share(lambda k: k == "aten::bmm"),
+        "cuFFT (aten::_fft_*)": share(lambda k: k.startswith("aten::_fft")),
+        "pointwise real GEMMs (aten::mm/addmm)": share(
+            lambda k: k in ("aten::mm", "aten::addmm")),
+        "copies (aten::copy_/clone/cat)": share(
+            lambda k: k in ("aten::copy_", "aten::clone", "aten::cat")),
+    }
+    einsum = sum(e.device_time_total for e in ops if e.key == "aten::einsum")
+    rest = total - sum(groups.values())
+    print(f"[profile] NS step by operator over {steps} eager steps: device "
+          f"{total / steps / 1e3:.3f} ms a step; " + "; ".join(
+              f"{k} {100 * v / total:.1f}%" for k, v in groups.items())
+          + f"; everything else (elementwise, FD stencils, reductions, "
+          f"Adam) {100 * rest / total:.1f}%; the forward einsums with their "
+          f"permute copies {100 * einsum / total:.1f}%")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile] {100 * e.self_device_time_total / total:5.1f}% "
+              f"{e.self_device_time_total / steps / 1e3:8.4f} ms/step "
+              f"{e.count // steps:6d} calls/step  {e.key[:80]}")
+
+
+def _ns_tf32_check(card: str) -> None:
+    """Whether `allow_tf32` changes the complex mixing einsum (cgemm) at
+    the NS shapes: the same einsum with the flag off and on."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xf = torch.randn((16, 8, 8, 4, 12), dtype=torch.complex64,
+                     generator=gen, device="cuda")
+    w = torch.randn((8, 8, 4, 16, 16), dtype=torch.complex64, generator=gen,
+                    device="cuda")
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    try:
+        out = {}
+        for tf32 in (False, True):
+            flags.allow_tf32 = tf32
+            out[tf32] = torch.einsum("ixyzp,xyzio->oxyzp", xf, w)
+            ms = _event_ms(lambda: torch.einsum("ixyzp,xyzio->oxyzp", xf, w))
+            out[f"ms{tf32}"] = ms
+        diff = float((out[True] - out[False]).abs().max()
+                     / out[False].abs().max())
+    finally:
+        flags.allow_tf32 = before
+    print(f"[pino-pde] the complex mixing einsum at the NS shapes "
+          f"(16 x 8x8x4 x 12 by 8x8x4 x 16 x 16, complex64): TF32 on against "
+          f"off, max difference {diff:.2e} of the largest entry; "
+          f"{out['msFalse'] * 1e3:.1f} us off, {out['msTrue'] * 1e3:.1f} us "
+          f"on; {card}")
+
+
+def phase_pino_pde(card: str) -> dict:
+    """The slice's main path: the NS vorticity operator of the base-fd row
+    (FNO3D w16 m(8,8,4) d3, 33^2 x 9 grid, 12 GRF ICs, Adam 2e-3, 8,000
+    steps in blocks of 50, float32, TF32 off) scored on the 8 held-out ICs;
+    a traced window of replayed steps and the per-operator shares; then the
+    JAX tests' heat family, resampled IC operator, Gauss-Newton polish and
+    DeepONetPDE family."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy
+    from neuralpde_tpu_torch.compile.lower import depvar_params
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from neuralpde_tpu_torch.solvers import pino_pde
+    from neuralpde_tpu_torch.solvers.ode import _SimpleProblem
+
+    tj.reset_launch_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    system, alg = _ns_alg(npde)
+    stamps = []
+
+    def stamp(it, loss, aux):
+        stamps.append((it, time.perf_counter(), loss))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sol = npde.solve_pino_pde(system, alg, maxiters=NS_STEPS,
+                              inner_steps=NS_BLOCK, callback=stamp,
+                              abstol=0.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = stamps[-1][0] - stamps[0][0]
+    step_s = (stamps[-1][1] - stamps[0][1]) / steps
+    mean, rels = accuracy.ns_rel_l2(sol, NS_NODES)
+    g = sol.original.aux["cuda_graph"]
+    print(f"[pino-pde] NS vorticity base-fd: FNO3D w16 m(8,8,4) d3 out 2, "
+          f"33^2 x 9 grid, 12 GRF ICs (l 0.25, sigma 3), gauge loss, Adam "
+          f"2e-3, f32 TF32 off: {NS_STEPS} steps in {seconds:.2f} s; first "
+          f"block (eager step, capture, {NS_BLOCK - 2} replays) "
+          f"{stamps[0][1] - t0:.3f} s; then {1e3 * step_s:.3f} ms a step, "
+          f"{1 / step_s:.1f} steps/s; {g['captures']} capture(s) in "
+          f"{g['capture_seconds']:.3f} s, {g['replays']} replays; peak "
+          f"{peak:.3f} GiB; loss {stamps[0][2]:.4e} -> {stamps[-1][2]:.4e}; "
+          f"cuFFT plan cache {torch.backends.cuda.cufft_plan_cache.size} of "
+          f"{torch.backends.cuda.cufft_plan_cache.max_size}; {card}")
+    print(f"[pino-pde] NS mean rel L2 of the vorticity over the 8 held-out "
+          f"ICs (key 4242, 65^2 -> 33^2 spectrally), against the spectral "
+          f"solver at n=128: {mean:.4f} (per IC "
+          f"{[round(r, 4) for r in rels]}; limit {NS_LIMIT}; the JAX "
+          f"package's TPU row {NS_JAX})")
+    _require_graph("NS solve", sol.original, eager=1)
+    _require_falling("NS solve", [s[2] for s in stamps[::10]] + [stamps[-1][2]])
+    if not mean < NS_LIMIT:
+        raise AssertionError(f"NS operator: mean rel L2 {mean} >= {NS_LIMIT}")
+
+    # a traced window of replayed steps, then eager steps by operator
+    b = pino_pde._build(system, alg)
+    bare = _SimpleProblem(b.total_loss, sol.original.u)
+    _profile_solve(bare, npde.adam(2e-3), 22, 22, step_s)
+    step = npde.make_step(bare.loss, npde.adam(2e-3))
+    ones = {k: torch.ones(n, device="cuda") for k, n in
+            (("pde_weights", 0), ("bc_weights", 0), ("additional_weights", 1))}
+    carry = step.init(sol.original.u, ones)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    carry, _ = step(carry, generator)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            carry, _ = step(carry, generator)
+        torch.cuda.synchronize()
+    _ns_share(prof, 5)
+    _ns_tf32_check(card)
+
+    # the JAX tests' families beside the NS run
+    heat = accuracy.heat_family_system()
+    ps = np.linspace(0.1, 0.45, 7)
+    alg = npde.PINOPDE(chain=npde.FNO2D(1, width=16, modes=6, depth=2),
+                       opt=npde.adam(3e-3), bounds=[(0.05, 0.5)],
+                       number_of_parameters=10,
+                       strategy=npde.GridTraining(1 / 16))
+    sol, seconds, _ = _sol_seconds(lambda: npde.solve_pino_pde(
+        heat, alg, maxiters=800, inner_steps=25, abstol=0.0))
+    rel = accuracy.heat_family_rel_l2(sol, ps)
+    print("[pino-pde] " + _pino_solve_line(
+        "heat family FNO2D w16 m6 d2, 17^2 grid x 10, Adam 3e-3, f32",
+        sol, seconds, 800) + f"; rel L2 on the 33^2 grid at 7 parameters off "
+          f"the training set {rel:.4e} (limit {HEAT_LIMIT})")
+    _require_graph("heat family", sol.original, eager=1)
+    if not rel < HEAT_LIMIT:
+        raise AssertionError(f"heat family: rel L2 {rel}")
+
+    x, t = npde.symbols("x t")
+    u, f0 = npde.DepVar("u"), npde.DepVar("f0")
+    nu = 0.05
+    ic_sys = npde.PDESystem(
+        npde.Eq(npde.Differential(t)(u(x, t)),
+                nu * (npde.Differential(x) ** 2)(u(x, t))),
+        [npde.Eq(u(x, 0.0), f0(x)), npde.Eq(u(0.0, t), u(1.0, t))],
+        [npde.Domain(x, npde.Interval(0, 1)),
+         npde.Domain(t, npde.Interval(0, 0.5))], ivs=[x, t], dvs=[u(x, t)])
+    grf = npde.GaussianRandomField(length_scale=0.15)
+    alg = npde.PINOPDE(chain=npde.FNO2D(1, width=16, modes=(10, 6), depth=2),
+                       opt=npde.adam(2e-3), number_of_parameters=16,
+                       input_functions={f0(x): grf}, resample=True,
+                       strategy=npde.GridTraining([1 / 32, 1 / 16]))
+    sol, seconds, _ = _sol_seconds(lambda: npde.solve_pino_pde(
+        ic_sys, alg, maxiters=800, inner_steps=25, abstol=0.0))
+    gx = sol.grids[0].cpu().numpy().astype(np.float64)
+    gt = sol.grids[1].cpu().numpy().astype(np.float64)
+    test_ic = grf(torch.Generator().manual_seed(77), [gx], 8).double().numpy()
+    pred = sol(input_values={"f0": test_ic}).cpu().numpy()
+    m = len(gx) - 1
+    k = 2 * np.pi * np.fft.rfftfreq(m, d=1.0 / m)
+    uh0 = np.fft.rfft(test_ic[:-1, :], axis=0)
+    want = np.stack([np.fft.irfft(uh0 * np.exp(-nu * k[:, None] ** 2 * tt),
+                                  n=m, axis=0) for tt in gt], axis=1)
+    want = np.concatenate([want, want[:1]], axis=0)
+    rel = float(np.linalg.norm(pred - want) / np.linalg.norm(want))
+    print("[pino-pde] " + _pino_solve_line(
+        "resample=True heat IC operator FNO2D w16 m(10,6) d2, a new GRF "
+        "family of 16 (l 0.15) drawn inside every replay", sol, seconds, 800)
+          + f"; rel L2 on 8 held-out ICs against the exact evolution "
+          f"{rel:.4e} (limit {RESAMPLE_LIMIT})")
+    _require_graph("resampled family", sol.original, eager=1)
+    if not rel < RESAMPLE_LIMIT:
+        raise AssertionError(f"resampled family: rel L2 {rel}")
+
+    with _default_dtype(torch.float64):
+        mk = lambda **kw: npde.PINOPDE(  # noqa: E731
+            chain=npde.FNO2D(1, width=16, modes=6, depth=2),
+            opt=npde.adam(3e-3), bounds=[(0.05, 0.5)],
+            number_of_parameters=10, strategy=npde.GridTraining(1 / 16), **kw)
+        sol = npde.solve_pino_pde(heat, mk(), maxiters=400, inner_steps=25,
+                                  abstol=0.0)
+        adam_loss = sol.original.objective
+        sol2, seconds, _ = _sol_seconds(lambda: npde.solve_pino_pde_gauss_newton(
+            heat, mk(init_params=depvar_params(sol.original.u)), maxiters=30))
+    gn_loss = sol2.original.objective
+    print(f"[pino-pde] Gauss-Newton polish of the heat family (f64, as the "
+          f"JAX test runs): Adam 400 steps {adam_loss:.4e} -> 30 LM "
+          f"iterations {gn_loss:.4e} ({adam_loss / gn_loss:.1f}x, limit "
+          f"{GN_POLISH_FACTOR}x) in {seconds:.2f} s; inner graphs "
+          f"{sol2.original.aux['cuda_graph']}")
+    if not gn_loss < adam_loss / GN_POLISH_FACTOR:
+        raise AssertionError("GN polish: the loss fell less than 10x")
+
+    alg = npde.PINOPDE(chain=npde.DeepONetPDE(1, 2, latent=32,
+                                              branch_sizes=(32,),
+                                              trunk_sizes=(32, 32)),
+                       opt=npde.adam(3e-3), bounds=[(0.05, 0.5)],
+                       number_of_parameters=10,
+                       strategy=npde.GridTraining(1 / 16))
+    sol, seconds, _ = _sol_seconds(lambda: npde.solve_pino_pde(
+        heat, alg, maxiters=800, inner_steps=25, abstol=0.0))
+    gx = 0.5 * (1 - np.cos(np.linspace(0, np.pi, 29)))
+    gt = np.sort(np.concatenate([[0.0, 1.0], np.random.default_rng(0)
+                                 .uniform(0, 1, 21)]))
+    pred = sol(p=ps[None, :], grids=[gx, gt]).cpu().numpy()
+    want = (np.exp(-ps[None, None, :] * np.pi**2 * gt[None, :, None])
+            * np.sin(np.pi * gx[:, None, None]))
+    rel = float(np.linalg.norm(pred - want) / np.linalg.norm(want))
+    print("[pino-pde] " + _pino_solve_line(
+        "DeepONetPDE heat family (latent 32)", sol, seconds, 800)
+          + f"; rel L2 on a non-uniform grid {rel:.4e} (limit {HEAT_LIMIT})")
+    if not rel < HEAT_LIMIT:
+        raise AssertionError(f"DeepONetPDE family: rel L2 {rel}")
+    counts = tj.launch_counts()
+    print(f"[pino-pde] tanh_jet2 launches {counts}")
+    _require_counts("pino-pde", counts, False)
+    return counts
+
+
+def _ms_per_step(run, steps: int, block: int) -> tuple[float, object]:
+    """ms a replayed step of ``run(callback)`` over the blocks after the
+    first (eager step and capture)."""
+    stamps = []
+
+    def stamp(it, *_):
+        torch.cuda.synchronize()
+        stamps.append((it, time.perf_counter()))
+
+    res = run(stamp)
+    n = stamps[-1][0] - stamps[0][0]
+    return 1e3 * (stamps[-1][1] - stamps[0][1]) / n, res
+
+
+def phase_ensembles(card: str) -> dict:
+    """`solve_pino_pde_ensemble(n_ensemble=8)` on the heat family against
+    solo solves (member 0 from the same parameters, ms a step), and
+    `solve_ensemble(n_ensemble=8)` on scripts/measure_ensemble_tpu.py's 2-D
+    Poisson (mlp([2,64,64,1]), GridTraining(1/63)) against a solo solve."""
+    import dataclasses
+
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    tj.reset_launch_counts()
+    heat = accuracy.heat_family_system()
+    alg = npde.PINOPDE(chain=npde.FNO2D(1, width=16, modes=6, depth=2),
+                       opt=npde.adam(3e-3), bounds=[(0.05, 0.5)],
+                       number_of_parameters=10,
+                       strategy=npde.GridTraining(1 / 16))
+    steps, block = 200, 25
+    ens_ms, ens = _ms_per_step(lambda cb: npde.solve_pino_pde_ensemble(
+        heat, alg, n_ensemble=8, maxiters=steps, inner_steps=block, seed=3,
+        callback=cb), steps, block)
+    gen = torch.Generator().manual_seed(3)
+    alg.chain.reset_parameters(gen)
+    init = {k: v.detach().clone() for k, v in alg.chain.named_parameters()}
+    solo_ms, solo = _ms_per_step(lambda cb: npde.solve_pino_pde(
+        heat, dataclasses.replace(alg, init_params=init), maxiters=steps,
+        inner_steps=block, callback=cb, abstol=0.0), steps, block)
+    member = ens.member_solution(0)
+    d_u = float((member.u - solo.u).abs().max() / solo.u.abs().max())
+    d_loss = abs(float(ens.losses[0]) - solo.original.objective) / \
+        abs(solo.original.objective)
+    mean, std = ens.mean_and_std()
+    print(f"[ensembles] solve_pino_pde_ensemble(n_ensemble=8) heat family "
+          f"FNO2D w16 m6 d2: {ens_ms:.3f} ms a step against {solo_ms:.3f} ms "
+          f"solo ({ens_ms / solo_ms:.2f}x for 8 members; "
+          f"{8e3 / ens_ms:.1f} against {1e3 / solo_ms:.1f} member-steps/s); "
+          f"losses {[f'{v:.3e}' for v in ens.losses.tolist()]}, best "
+          f"{ens.best_index} with u {tuple(ens.best.u.shape)}, mean/std "
+          f"{tuple(mean.shape)}/{tuple(std.shape)}; member 0 against a solo "
+          f"solve from its parameters after {steps} steps: fields {d_u:.2e}, "
+          f"loss {d_loss:.2e} (limit {ENSEMBLE_RTOL}); graphs "
+          f"{ens.aux['cuda_graph']}; {card}")
+    if not (d_u <= ENSEMBLE_RTOL and d_loss <= ENSEMBLE_RTOL):
+        raise AssertionError("ensemble member 0 differs from the solo solve")
+    if tuple(mean.shape) != tuple(solo.u.shape) or not bool(
+            torch.isfinite(std).all()):
+        raise AssertionError("ensemble mean_and_std: wrong shape or values")
+
+    system = accuracy.poisson_2d_system()
+    prob = npde.discretize(system, npde.PhysicsInformedNN(
+        npde.mlp([2, 64, 64, 1]), npde.GridTraining(1 / 63),
+        dtype=torch.float32, device="cuda"))
+    steps, block = 600, 100
+    ens_ms, ens = _ms_per_step(lambda cb: npde.solve_ensemble(
+        prob, npde.adam(1e-3), maxiters=steps, n_ensemble=8,
+        inner_steps=block, callback=cb), steps, block)
+    solo_ms, solo = _ms_per_step(lambda cb: npde.solve(
+        prob, npde.adam(1e-3), maxiters=steps, inner_steps=block,
+        callback=cb), steps, block)
+    print(f"[ensembles] solve_ensemble(n_ensemble=8) 2-D Poisson "
+          f"mlp([2,64,64,1]) GridTraining(1/63), jvp, f32: {ens_ms:.3f} ms a "
+          f"step against {solo_ms:.3f} ms solo: {8e3 / ens_ms:.1f} "
+          f"member-steps/s against {1e3 / solo_ms:.1f} for one solo solve "
+          f"(eight solo solves: the same rate, one after another); "
+          f"per-member efficiency {8 * solo_ms / ens_ms:.2f}; losses "
+          f"{[f'{v:.3e}' for v in ens.losses.tolist()]}; graphs "
+          f"{ens.aux['cuda_graph']}")
+    if not bool(torch.isfinite(ens.losses).all()):
+        raise AssertionError("Poisson ensemble: non-finite losses")
+    counts = tj.launch_counts()
+    print(f"[ensembles] tanh_jet2 launches {counts}")
+    _require_counts("ensembles", counts, False)
+    return counts
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"[{label}] phase took {time.perf_counter() - t0:.1f} s")
+    print(f"[{label}] phase took {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated after "
+          f"it")
     return out
 
 
@@ -2345,7 +2955,11 @@ def main() -> int:
             23: lambda: phase_zoo_solvers(card),
             24: lambda: phase_stochastic_card_vs_cpu(card),
             25: lambda: phase_sde(card),
-            26: lambda: phase_bayesian(card)}
+            26: lambda: phase_bayesian(card),
+            27: lambda: phase_operators_card_vs_cpu(card),
+            28: lambda: phase_pino_ode(card),
+            29: lambda: phase_pino_pde(card),
+            30: lambda: phase_ensembles(card)}
     totals: dict = {}
     for number, run in runs.items():
         LAUNCH_SHAPES.clear()

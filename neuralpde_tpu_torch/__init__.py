@@ -8,9 +8,11 @@ its step on the card, checkpoint/resume, Adam then L-BFGS), separable
 `QuadratureTraining`), the ODE/DAE solver surface (`solve_ode`,
 `solve_dae`, `neural_adapter`), the trial-function zoo (`FBPINN`, `kan`,
 `DGM`, `TorchModuleAdapter`), the variational formulations (hp-VPINN
-`WeakTraining` with `refine_weak`, `DeepRitz`) and the stochastic layer
+`WeakTraining` with `refine_weak`, `DeepRitz`), the stochastic layer
 (distributions, `solve_sde`, the Fokker-Planck `SDEPINN`, HMC/NUTS and the
-Bayesian PINNs `BNNODE` and `BayesianPINN`) for one NVIDIA H100, with
+Bayesian PINNs `BNNODE` and `BayesianPINN`) and the operator layer
+(`DeepONet`, the FNOs, `solve_pino_ode`, `solve_pino_pde` on the
+field-grid lowering, deep ensembles) for one NVIDIA H100, with
 hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
@@ -35,6 +37,10 @@ from .nn.adapters import TorchModuleAdapter
 from .nn.dgm import DGM, DGMLSTMLayer
 from .nn.fbpinn import FBPINN
 from .nn.kan import KANLayer, kan
+from .nn.deeponet import DeepONet, DeepONetPDE
+from .nn.fno import (
+    FNO1D, FNO2D, FNO3D, SpectralConv1D, SpectralConv2D, SpectralConv3D,
+)
 from .ops.derivatives import (
     DerivativeEngine, jet_derivative, jvp_derivative, numeric_derivative,
 )
@@ -62,14 +68,19 @@ from .compile.separable import SeparableTraining, build_separable_residual
 from .compile.weak import WeakTraining, refine_weak, solve_weak_adaptive
 from .train import SolveResult, adam, lbfgs, make_step, solve, solve_hybrid
 from .gauss_newton import (
-    build_ode_residual_vector, build_residual_vector, lm_least_squares,
-    solve_gauss_newton, solve_ode_gauss_newton, trust_region_least_squares,
+    build_ode_residual_vector, build_pino_pde_residual_vector,
+    build_pino_residual_vector, build_residual_vector, lm_least_squares,
+    solve_gauss_newton, solve_ode_gauss_newton, solve_pino_gauss_newton,
+    solve_pino_pde_gauss_newton, trust_region_least_squares,
 )
 from .solvers import (
-    DAEProblem, DeepGalerkin, DeepRitz, NNDAE, NNODE, NNSDE, ODEPhi,
-    ODEProblem, ODESolution, SDEPINN, SDEProblem, SDEsol, discretize_ritz,
-    neural_adapter, solve_dae, solve_ode, solve_sde, solve_sde_weak,
+    DAEProblem, DeepGalerkin, DeepRitz, GaussianRandomField, NNDAE, NNODE,
+    NNSDE, ODEPhi, ODEProblem, ODESolution, PINOEnsembleResult, PINOODE,
+    PINOODESolution, PINOPDE, PINOPDESolution, SDEPINN, SDEProblem, SDEsol,
+    discretize_ritz, neural_adapter, solve_dae, solve_ode, solve_pino_ode,
+    solve_pino_pde, solve_pino_pde_ensemble, solve_sde, solve_sde_weak,
 )
+from .parallel.ensemble import EnsembleResult, solve_ensemble
 from .bayesian import (
     BNNODE, BPINNsolution, BPINNstats, ahmc_bayesian_pinn_ode,
     ahmc_bayesian_pinn_pde, ess, mcmc_summarize, solve_bnnode, split_rhat,

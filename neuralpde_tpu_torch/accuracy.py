@@ -25,7 +25,10 @@ error measure: `two_scale_ode` and `multiscale_laplace`
 (`examples/fbpinn_multiscale.py`), `front_system`
 (`scripts/measure_weak_accuracy_tpu.py`), `poisson_1d_system`, the Burgers
 systems of `examples/burgers_dgm.py` and of the DGM test, and
-`ritz_poisson_2d`.
+`ritz_poisson_2d`.  The operator problems: the Navier-Stokes vorticity
+family with its held-out initial conditions and pseudo-spectral reference
+(`ns_vorticity_system`, `ns_rel_l2`) and the heat family
+(`heat_family_system`).
 
 The full separable Allen-Cahn recipe takes about ten minutes on one card,
 the dense one longer:
@@ -51,7 +54,7 @@ from . import (
     GridTraining, Interval, NonAdaptiveLoss, PDESystem, PeriodicEmbedding,
     PhysicsInformedNN, SeparableNet, SeparableTraining, StochasticTraining,
     Transformed, adam, cos, depvar_params, discretize, discretize_ritz, lbfgs,
-    mlp, sin, solve, symbols, tanh,
+    mlp, parameters, sin, solve, symbols, tanh,
 )
 from .config import matmul_precision
 
@@ -637,6 +640,192 @@ def ritz_poisson_2d(strategy, *, sizes=(2, 32, 32, 1), device="cuda"):
                    strategy=strategy, dtype=torch.float32, device=device,
                    seed=1)
     return discretize_ritz(system, alg)
+
+
+# ---------------------------------------------------------------------------
+# Operator problems (PINOPDE): the Navier-Stokes vorticity family of
+# examples/ns_vorticity_pino.py with the evaluation protocol of
+# scripts/measure_ns_operator_tpu.py, and the heat family of the PINOPDE
+# tests.  numpy copies: the example and the script import JAX.
+# ---------------------------------------------------------------------------
+
+NS = dict(nu=0.02, sigma=3.0, length_scale=0.25, tmax=0.5)
+NS_EVAL = dict(key=4242, n=8, nodes=65)     # the protocol's held-out ICs
+NS_EVAL_ICS = "ns_eval_ics.npy"             # (65, 65, 8) float32, beside this file
+
+
+def ns_stream_scale(sigma=NS["sigma"], length_scale=NS["length_scale"]):
+    """The stream-function rescaling s that keeps both operator outputs
+    O(1) (examples/ns_vorticity_pino.py)."""
+    return sigma * (length_scale / (2 * np.pi)) ** 2 * 10
+
+
+def ns_vorticity_system(nu=NS["nu"], s=None, tmax=NS["tmax"]):
+    """Vorticity-streamfunction Navier-Stokes on the periodic unit torus:
+
+        w_t + s (psi_y w_x - psi_x w_y) = nu (w_xx + w_yy)
+        s (psi_xx + psi_yy) + w = 0,    w(x, y, 0) = w0(x, y)
+
+    with periodic pairs for w and psi.  Returns ``(system, w0(x, y))``;
+    ``w0`` is the input function."""
+    s = ns_stream_scale() if s is None else s
+    x, y, t = symbols("x y t")
+    w, psi, w0 = DepVar("w"), DepVar("psi"), DepVar("w0")
+    Dt, Dx, Dy = Differential(t), Differential(x), Differential(y)
+    Dxx, Dyy = Differential(x) ** 2, Differential(y) ** 2
+    W, PSI = w(x, y, t), psi(x, y, t)
+    eqs = [Eq(Dt(W) + s * (Dy(PSI) * Dx(W) - Dx(PSI) * Dy(W)),
+              nu * (Dxx(W) + Dyy(W))),
+           Eq(s * (Dxx(PSI) + Dyy(PSI)) + W, 0.0)]
+    bcs = [Eq(w(x, y, 0.0), w0(x, y))]
+    for f in (w, psi):
+        bcs += [Eq(f(0.0, y, t), f(1.0, y, t)),
+                Eq(Dx(f(0.0, y, t)), Dx(f(1.0, y, t))),
+                Eq(f(x, 0.0, t), f(x, 1.0, t)),
+                Eq(Dy(f(x, 0.0, t)), Dy(f(x, 1.0, t)))]
+    system = PDESystem(eqs, bcs,
+                       [Domain(x, Interval(0, 1)), Domain(y, Interval(0, 1)),
+                        Domain(t, Interval(0, tmax))],
+                       ivs=[x, y, t], dvs=[W, PSI])
+    return system, w0(x, y)
+
+
+def zero_mean_grf(length_scale=NS["length_scale"],
+                  variance=NS["sigma"] ** 2):
+    """GRF vorticity sampler with zero mean (mean vorticity has no stream
+    function on the torus), over the nodes without the wrap nodes."""
+    from .solvers.pino_pde import GaussianRandomField
+
+    grf = GaussianRandomField(length_scale=length_scale, variance=variance)
+
+    def sampler(generator, axis_grids, n):
+        f = grf(generator, axis_grids, n)
+        return f - torch.mean(f[:-1, :-1, :], dim=(0, 1))
+
+    return sampler
+
+
+def ns_gauge(fields, theta):
+    """The additional loss that pins the periodic Poisson equation's
+    gauge (psi + const): the per-slice mean of psi."""
+    return 10.0 * torch.mean(torch.mean(fields["psi"], dim=(0, 1)) ** 2)
+
+
+def reference_ns_vorticity(w0, nu, ts, n=128, substeps=16):
+    """Pseudo-spectral 2-D vorticity solver on [0,1)^2
+    (examples/ns_vorticity_pino.py): ``w0`` (X, Y) on a uniform grid with
+    both endpoints; returns (X, Y, T) at the input nodes for uniformly
+    spaced ``ts`` (integrating-factor RK4, 2/3-rule dealiasing)."""
+    m = w0.shape[0] - 1
+    wh = np.fft.rfft2(w0[:-1, :-1])
+    vh = np.zeros((n, n // 2 + 1), dtype=complex)
+    half = min(m, n) // 2
+    vh[:half, :half + 1] = wh[:half, :half + 1]
+    vh[-half:, :half + 1] = wh[-half:, :half + 1]
+    vh *= (n / m) ** 2
+
+    kx = 2 * np.pi * np.fft.fftfreq(n, d=1.0 / n)[:, None]
+    ky = 2 * np.pi * np.fft.rfftfreq(n, d=1.0 / n)[None, :]
+    k2 = kx**2 + ky**2
+    k2_inv = np.where(k2 > 0, 1.0 / np.where(k2 > 0, k2, 1.0), 0.0)
+    kcut = (2 / 3) * np.pi * n
+    dealias = (np.abs(kx) <= kcut) & (np.abs(ky) <= kcut)
+    dt = (ts[1] - ts[0]) / substeps
+    E = np.exp(-nu * k2 * dt / 2)
+    E2 = E * E
+
+    def rhs(v):
+        ph = v * k2_inv                       # psi_hat (Delta psi = -w)
+        u = np.fft.irfft2(1j * ky * ph, s=(n, n))      # u = psi_y
+        vvel = np.fft.irfft2(-1j * kx * ph, s=(n, n))  # v = -psi_x
+        wx = np.fft.irfft2(1j * kx * v, s=(n, n))
+        wy = np.fft.irfft2(1j * ky * v, s=(n, n))
+        return -np.fft.rfft2(u * wx + vvel * wy) * dealias * dt
+
+    out = []
+    idx = np.round(np.linspace(0, n, m + 1)).astype(int) % n
+    v = vh
+    for i in range(len(ts)):
+        if i > 0:
+            for _ in range(substeps):
+                a = rhs(v)
+                b = rhs(E * (v + a / 2))
+                c = rhs(E * v + b / 2)
+                d = rhs(E2 * v + E * c)
+                v = E2 * v + (E2 * a + 2 * E * (b + c) + d) / 6
+        w = np.fft.irfft2(v, s=(n, n))
+        out.append(w[np.ix_(idx, idx)])
+    return np.stack(out, axis=-1)            # (X, Y, T)
+
+
+def spectral_downsample(f, m_out):
+    """(M+1, M+1) periodic field (wrap nodes included) -> (m_out+1,
+    m_out+1) by Fourier truncation, exact for band-limited fields
+    (scripts/measure_ns_operator_tpu.py)."""
+    m_in = f.shape[0] - 1
+    if m_in == m_out:
+        return f
+    fh = np.fft.rfft2(f[:-1, :-1])
+    out = np.zeros((m_out, m_out // 2 + 1), dtype=complex)
+    h = m_out // 2
+    out[:h, :h + 1] = fh[:h, :h + 1]
+    out[-h:, :h + 1] = fh[-h:, :h + 1]
+    g = np.fft.irfft2(out, s=(m_out, m_out)) * (m_out / m_in) ** 2
+    g = np.concatenate([g, g[:1]], axis=0)
+    return np.concatenate([g, g[:, :1]], axis=1)
+
+
+def ns_eval_ics() -> np.ndarray:
+    """The protocol's 8 held-out initial vorticities on the 65-node grid
+    (wrap nodes included), (65, 65, 8): the JAX package's zero-mean GRF
+    (l = 0.25, sigma = 3) drawn from key 4242 in float32, kept as a file
+    of this package."""
+    import os
+
+    return np.load(os.path.join(os.path.dirname(__file__), NS_EVAL_ICS))
+
+
+def ns_rel_l2(sol, nodes: int, nu=NS["nu"], n_ref: int = 128):
+    """Mean and per-IC rel L2 of a trained NS operator's vorticity over
+    its space-time grid, on the held-out ICs spectrally downsampled to the
+    ``nodes``-node grid, against `reference_ns_vorticity` at ``n_ref``."""
+    eval65 = ns_eval_ics().astype(np.float64)
+    m = nodes - 1
+    test_ic = np.stack([spectral_downsample(eval65[:, :, j], m)
+                        for j in range(eval65.shape[-1])], axis=-1)
+    pred = sol(input_values={"w0": test_ic}).cpu().numpy()
+    ts = sol.grids[2].cpu().numpy().astype(np.float64)
+    rels = []
+    for j in range(test_ic.shape[-1]):
+        want = reference_ns_vorticity(test_ic[:, :, j], nu, ts, n=n_ref)
+        got = pred[0, :, :, :, j]
+        rels.append(float(np.linalg.norm(got - want)
+                          / np.linalg.norm(want)))
+    return float(np.mean(rels)), rels
+
+
+def heat_family_system() -> PDESystem:
+    """u_t = nu u_xx on [0, 1]^2 over the parameter nu, u(x, 0) =
+    sin(pi x), u(0, t) = u(1, t) = 0: exp(-nu pi^2 t) sin(pi x)
+    (the heat family of the PINOPDE tests)."""
+    x, t = symbols("x t")
+    nu, u = parameters("nu"), DepVar("u")
+    eq = Eq(Differential(t)(u(x, t)), nu * (Differential(x) ** 2)(u(x, t)))
+    bcs = [Eq(u(x, 0.0), sin(np.pi * x)), Eq(u(0.0, t), 0.0),
+           Eq(u(1.0, t), 0.0)]
+    return PDESystem(eq, bcs, [Domain(x, Interval(0.0, 1.0)),
+                               Domain(t, Interval(0.0, 1.0))],
+                     ivs=[x, t], dvs=[u(x, t)], ps=[nu])
+
+
+def heat_family_rel_l2(sol, ps, n: int = 33) -> float:
+    """rel L2 of a heat-family operator at parameters ``ps`` on an n×n grid
+    (a finer grid than training: discretization transfer)."""
+    g = np.linspace(0, 1, n)
+    pred = sol(p=np.asarray(ps)[None, :], grids=[g, g]).cpu().numpy()
+    want = (np.exp(-np.asarray(ps)[None, None, :] * np.pi**2
+                   * g[None, :, None]) * np.sin(np.pi * g[:, None, None]))
+    return float(np.linalg.norm(pred - want) / np.linalg.norm(want))
 
 
 def main(argv=None) -> None:

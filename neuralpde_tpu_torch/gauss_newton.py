@@ -13,13 +13,14 @@ Deterministic training sets are required (the objective must be fixed
 across inner iterations): `GridTraining`, static-grid `SeparableTraining`,
 `QuadratureTraining` (its fixed rule) or `WeakTraining` (the hp-VPINN
 projection rows); `solve_ode_gauss_newton` drives an `ODEProblem` + `NNODE`
-the same way.  The PINO entry points come with the operator slice of the
-port.
+the same way, and `solve_pino_gauss_newton`/`solve_pino_pde_gauss_newton`
+the operator objectives (PINOODE, PINOPDE) on their fixed train sets.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import warnings
 from typing import Callable
 
@@ -750,3 +751,126 @@ def solve_ode_gauss_newton(prob, alg, *, dt=None, saveat=None,
     res = _ls_driver(method)(r_fn, theta0, **kwargs)
     return build_ode_solution(prob, phi, res, dt=dt, saveat=saveat,
                               save_everystep=save_everystep)
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Newton for the operator solvers (PINOODE, PINOPDE)
+# ---------------------------------------------------------------------------
+
+def build_pino_residual_vector(prob, alg, *, dt=None, device=None):
+    """Flat residual for an `ODEProblem` + `PINOODE` config with
+    ``||r(θ)||² == PINO loss`` (physics mean + IC mean, `solvers/pino.py`
+    `_losses`) on the deterministic GridTraining (p, t) product train set,
+    on ``device`` (``"cuda"`` unless given).  Returns ``(r_fn, theta0,
+    phi)``."""
+    from .config import default_float
+    from .solvers.ode import initial_theta
+    from .solvers.pino import PINOPhi, _grid_trainset, _residuals
+
+    dtype = default_float()
+    device = torch.device(device if device is not None else "cuda")
+    if alg.bounds is None:
+        raise ValueError("PINOODE requires parameter bounds")
+    if alg.additional_loss is not None:
+        raise ValueError(
+            "Gauss-Newton cannot fold PINOODE(additional_loss=...) into the "
+            "least-squares residual vector — stack your extra terms as "
+            "residual rows via lm_least_squares instead")
+    strategy = alg.strategy
+    if strategy is None and dt is not None:
+        strategy = GridTraining(dt)
+    if not isinstance(strategy, GridTraining):
+        raise TypeError(
+            "Gauss-Newton needs a deterministic PINO train set: use "
+            "PINOODE(strategy=GridTraining(dx)) or pass dt=")
+    bounds = [tuple(map(float, b)) for b in alg.bounds]
+    tspan = (float(prob.tspan[0]), float(prob.tspan[1]))
+    phi = PINOPhi(alg.chain)
+    theta0 = initial_theta(prob, alg, dtype, device)
+    p_tr, t_tr = _grid_trainset(bounds, alg.number_of_parameters, tspan,
+                                strategy.dx or dt, dtype, device)
+
+    def r_fn(theta):
+        r_phys, r_ic = _residuals(phi, prob, p_tr, t_tr, theta)
+        return torch.cat([r_phys.reshape(-1) / math.sqrt(r_phys.numel()),
+                          r_ic.reshape(-1) / math.sqrt(r_ic.numel())])
+
+    return r_fn, theta0, phi
+
+
+def solve_pino_gauss_newton(prob, alg, *, dt=None, method: str = "lm",
+                            device=None, **kwargs):
+    """`solve_pino_ode` with Gauss-Newton: minimizes the operator-learning
+    least squares (physics + IC over the (p, t) grid) on ``device``
+    (``"cuda"`` unless given).  Returns the same `PINOODESolution`."""
+    from .config import default_float
+    from .solvers.pino import (
+        PINOODESolution, _grid_trainset, _n_out, make_pino_interp,
+    )
+
+    r_fn, theta0, phi = build_pino_residual_vector(prob, alg, dt=dt,
+                                                   device=device)
+    res = _ls_driver(method)(r_fn, theta0, **kwargs)
+
+    like = next(iter(theta0.values()))
+    bounds = [tuple(map(float, b)) for b in alg.bounds]
+    tspan = (float(prob.tspan[0]), float(prob.tspan[1]))
+    strategy = (alg.strategy if isinstance(alg.strategy, GridTraining)
+                else GridTraining(dt))
+    p_fin, t_fin = _grid_trainset(bounds, alg.number_of_parameters, tspan,
+                                  strategy.dx or dt, default_float(),
+                                  like.device)
+    interp = make_pino_interp(phi, res.u, _n_out(prob))
+    return PINOODESolution(u=interp(p_fin, t_fin), t=t_fin, p=p_fin,
+                           interp=interp, original=res)
+
+
+def build_pino_pde_residual_vector(pde_system, alg, *, device=None):
+    """Flat residual for a `PDESystem` + `PINOPDE` config with
+    ``||r(θ)||² == PINOPDE loss`` (per-equation mean-square residual
+    fields, `solvers/pino_pde.py`) on the family fixed at build, on
+    ``device`` (``"cuda"`` unless given).  Returns ``(r_fn, theta0,
+    built)`` with ``built`` the shared lowering (`solvers/pino_pde._build`)."""
+    from .compile.lower import depvar_params
+    from .solvers.pino_pde import _build
+
+    if alg.additional_loss is not None:
+        raise ValueError(
+            "Gauss-Newton cannot fold PINOPDE(additional_loss=...) into the "
+            "least-squares residual vector — stack your extra terms as "
+            "residual rows via lm_least_squares instead")
+    if alg.resample:
+        raise ValueError(
+            "Gauss-Newton needs a deterministic objective: use "
+            "PINOPDE(resample=False) (polish the fixed build-time family)")
+    if alg.causal_eps is not None:
+        raise ValueError(
+            "Gauss-Newton cannot express causal weighting as a fixed "
+            "least-squares residual (weights depend on the residuals); "
+            "polish with PINOPDE(causal_eps=None)")
+    b = _build(pde_system, alg, device)
+
+    def r_fn(theta):
+        with b.prec():
+            fields = b.eval_fields(depvar_params(theta), b.p_tr, b.grids,
+                                   b.input_samples)
+            rows = [r(fields, b.p_tr) for r in b.residuals]
+        return torch.cat([r.reshape(-1) / math.sqrt(r.numel())
+                          for r in rows])
+
+    return r_fn, b.theta0, b
+
+
+def solve_pino_pde_gauss_newton(pde_system, alg, *, method: str = "lm",
+                                device=None, **kwargs):
+    """`solve_pino_pde` with Gauss-Newton: minimizes the operator-learning
+    least squares over the field-grid residuals on ``device`` (``"cuda"``
+    unless given).  Returns the same `PINOPDESolution`.  Typical use: Adam
+    pre-training by `solve_pino_pde`, then a polish with
+    ``alg.init_params = depvar_params(sol.original.u)``."""
+    from .solvers.pino_pde import _make_solution
+
+    r_fn, theta0, b = build_pino_pde_residual_vector(pde_system, alg,
+                                                     device=device)
+    res = _ls_driver(method)(r_fn, theta0, **kwargs)
+    return _make_solution(b, res.u, res)

@@ -283,12 +283,14 @@ def _strategy_loss(strategy, phi, f, autodiff, tspan, p, param_estim, scalar_u0,
 
 class _SimpleProblem:
     """A bare ``(loss, init_params)`` problem for `train.solve`: no
-    `PINNRepresentation`, so it trains on its parameters' device."""
+    `PINNRepresentation`, so it trains on its parameters' device, under
+    ``matmul_precision`` (None: TF32 off)."""
 
-    def __init__(self, loss, init_params):
+    def __init__(self, loss, init_params, matmul_precision=None):
         self._loss = loss
         self.init_params = init_params
         self.pinnrep = None
+        self.matmul_precision = matmul_precision
 
     def loss(self, theta, lstate):
         return self._loss(theta, lstate["generator"]), {}

@@ -267,16 +267,27 @@ def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
                      matmul_precision)
 
 
+_SIDE_STREAMS: dict = {}
+
+
 @contextlib.contextmanager
 def _side_stream(like: torch.Tensor):
-    """Run the body on a fresh side stream of ``like``'s CUDA device (a CUDA
+    """Run the body on the side stream of ``like``'s CUDA device (a CUDA
     graph cannot be captured on the default stream, and the backward passes
-    it captures run on their forwards' stream); nothing for CPU tensors."""
+    it captures run on their forwards' stream); nothing for CPU tensors.
+
+    One side stream a device serves every solve of the process: PyTorch
+    keeps a cuBLAS and a cuBLASLt workspace (32 MiB each on Hopper) for
+    every stream that ran a GEMM and never frees them, so a new stream a
+    solve would leave 64 MiB allocated after each."""
     if not like.is_cuda:
         yield
         return
     caller = torch.cuda.current_stream(like.device)
-    side = torch.cuda.Stream(device=like.device)
+    side = _SIDE_STREAMS.get(like.device.index)
+    if side is None:
+        side = _SIDE_STREAMS[like.device.index] = torch.cuda.Stream(
+            device=like.device)
     side.wait_stream(caller)
     try:
         with torch.cuda.stream(side):
@@ -409,7 +420,8 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
         from .adaptive import NonAdaptiveLoss
 
         like = next(iter(prob.init_params.values()))
-        adaloss, pde_fns, bc_fns, precision = None, (), (), None
+        adaloss, pde_fns, bc_fns = None, (), ()
+        precision = getattr(prob, "matmul_precision", None)
         device, dtype = like.device, like.dtype.to_real()
         ada_state = NonAdaptiveLoss().init_state(0, 0, dtype, device)
     if generator is None:

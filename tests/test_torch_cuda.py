@@ -662,3 +662,175 @@ def test_bpinn_jet_gradient_matches_the_plain_version(cuda):
     torch.testing.assert_close(vj, vp, rtol=1e-12, atol=0)
     torch.testing.assert_close(gj, gp, rtol=1e-10, atol=1e-10 * float(
         gp.abs().max()))
+
+
+# --------------------------------------------------------- the operator layer
+
+def _ns_operator(cuda, **kw):
+    """The NS vorticity operator at the JAX test's downscaled size (FNO3D
+    w8 m(4,4,3) d2, two GRF ICs on a 9 x 9 x 5 grid), float32, built on
+    the card: ``(bare problem, build)``."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy
+    from neuralpde_tpu_torch.solvers import pino_pde
+    from neuralpde_tpu_torch.solvers.ode import _SimpleProblem
+
+    system, w0 = accuracy.ns_vorticity_system()
+    alg = npde.PINOPDE(
+        chain=npde.FNO3D(1, width=8, modes=(4, 4, 3), depth=2,
+                         out_channels=2),
+        number_of_parameters=2,
+        input_functions={w0: kw.pop("sampler", accuracy.zero_mean_grf())},
+        additional_loss=accuracy.ns_gauge,
+        strategy=npde.GridTraining([1 / 8, 1 / 8, 0.5 / 4]), **kw)
+    with _float32():
+        b = pino_pde._build(system, alg, cuda)
+    return _SimpleProblem(b.total_loss, b.theta0), b
+
+
+class _float32:
+    def __enter__(self):
+        self.before = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float32)
+
+    def __exit__(self, *exc):
+        torch.set_default_dtype(self.before)
+
+
+def _no_weights(cuda):
+    return {k: torch.ones(n, device=cuda) for k, n in
+            (("pde_weights", 0), ("bc_weights", 0), ("additional_weights", 1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 16, 15, 10, 2), (2, 15, 16, 9, 2)],
+                         ids=["even", "odd"])
+def test_spectral_conv3d_on_the_card_matches_the_cpu(cuda, shape):
+    """The mixed spectra are not Hermitian (random weights); the inverse
+    transform's fixed order gives the CPU's result on the card."""
+    import neuralpde_tpu_torch as npde
+
+    gen = torch.Generator().manual_seed(0)
+    layer = npde.SpectralConv3D(shape[0], 3, (6, 6, 64))
+    layer.reset_parameters(gen)
+    x = torch.randn(shape, generator=gen)
+    want = layer(x)
+    got = layer.to(cuda)(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=1e-5,
+                               atol=1e-6 * float(want.detach().abs().max()))
+
+
+@pytest.mark.cuda
+def test_captured_pinopde_step_matches_eager_steps(cuda):
+    """The NS operator's step through `solve` (one eager step, a capture,
+    replays: cuFFT inside the graph) equals eager `make_step` steps from the
+    same parameters (rtol 1e-6)."""
+    import neuralpde_tpu_torch as npde
+
+    bare, b = _ns_operator(cuda)
+    step = npde.make_step(bare.loss, npde.adam(2e-3))
+    carry = step.init(b.theta0, _no_weights(cuda))
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    eager = []
+    for _ in range(6):
+        carry, (value, _) = step(carry, generator)
+        eager.append(float(value))
+    res = npde.solve(bare, npde.adam(2e-3), maxiters=6, inner_steps=3)
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, [eager[2], eager[5]], rtol=1e-6)
+    for k, v in carry[0].items():
+        torch.testing.assert_close(res.u[k], v.detach(), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_resampled_family_is_drawn_anew_in_every_replay(cuda):
+    """``resample=True``: the GRF family is drawn inside the captured step
+    from the solve's registered generator, so every replay trains on
+    another family."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy
+
+    grf = accuracy.zero_mean_grf()
+    drawn = torch.zeros(9, 9, device=cuda)
+
+    def sampler(generator, grids, n):
+        f = grf(generator, grids, n)
+        if generator.device.type == "cuda":
+            drawn.copy_(f[..., 0])
+        return f
+
+    bare, _ = _ns_operator(cuda, sampler=sampler, resample=True)
+    seen = []
+    res = npde.solve(bare, npde.adam(2e-3), maxiters=5, inner_steps=1,
+                     callback=lambda it, loss, aux: seen.append(
+                         drawn.clone()))
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 4
+    for a, c in zip(seen[1:], seen[2:]):
+        assert not torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_captured_ensemble_round_matches_eager_rounds(cuda):
+    """`solve_ensemble` on the card (the members' step captured as one
+    graph) against the same `EnsembleStep` run eagerly (rtol 1e-6)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+    from neuralpde_tpu_torch.parallel.ensemble import EnsembleStep
+
+    prob = npde.discretize(poisson_2d_system(), npde.PhysicsInformedNN(
+        npde.mlp([2, 8, 8, 1]), npde.GridTraining(0.1), dtype=torch.float32,
+        device=cuda))
+    gen = torch.Generator().manual_seed(0)
+    inits = []
+    for _ in range(3):
+        prob.pinnrep.phi.module.reset_parameters(gen)
+        inits.append({f"depvar.{k}": v.detach().to(cuda, copy=True) for k, v
+                      in prob.pinnrep.phi.module.named_parameters()})
+    members = iter(inits)
+    res = npde.solve_ensemble(prob, npde.adam(1e-2), maxiters=6,
+                              n_ensemble=3, inner_steps=3,
+                              member_init=lambda g: next(members))
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 5
+    step = EnsembleStep(prob.loss, npde.adam(1e-2), 3)
+    carry = step.init({k: torch.stack([p[k] for p in inits])
+                       for k in inits[0]},
+                      {"pde_weights": torch.ones(3, 1, device=cuda),
+                       "bc_weights": torch.ones(3, 4, device=cuda),
+                       "additional_weights": torch.ones(3, 1, device=cuda)})
+    for _ in range(6):
+        carry, (losses, _) = step(carry, None)
+    torch.testing.assert_close(res.losses, losses, rtol=1e-6, atol=0)
+    for k, v in carry[0].items():
+        torch.testing.assert_close(res.members[k], v.detach(), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_solve_returns_the_memory_of_its_graph(cuda):
+    """After `solve` returns, the allocated bytes come back to within a
+    few MiB of the bytes before it (the result's parameters), and a second
+    solve of the same problem has the same peak as the first.  Every solve
+    runs on the device's one side stream, whose cuBLAS workspaces (which
+    PyTorch keeps per stream, 64 MiB on Hopper) the first solve of the
+    process makes; a stream a solve left 64 MiB allocated after each."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.StochasticTraining(
+        65_536, bcs_points=8_192, microbatch=8_192))
+    npde.solve(prob, npde.adam(1e-3), maxiters=2, inner_steps=2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    peaks = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        assert torch.cuda.memory_allocated() - before < 4 * 2**20
+        del res
+    assert peaks[0] - before > 2**20             # the step's activations
+    assert abs(peaks[1] - peaks[0]) < 2**20, peaks
