@@ -120,19 +120,34 @@ seconds and the memory left allocated, and raise on failure:
     (member 0 against a solo solve from its parameters, ms a step against
     the solo solve) and `solve_ensemble(n_ensemble=8)` on
     scripts/measure_ensemble_tpu.py's 2-D Poisson against a solo solve.
-    Phases 27-30 take no Taylor jets and launch no kernel (checked).
+    Phases 27-30 take no Taylor jets and launch no kernel (checked);
+31. scale-out: one rank of an NCCL process group per card
+    (`initialize_distributed`); bench's dense headline through `solve`
+    under `use_mesh(make_mesh())`, its gradient all-reduce captured in the
+    step's CUDA graph, against the same solve without a mesh (first step,
+    and the loss after 200 steps; ms a step of each), a trace of replays
+    for the NCCL kernel, `solve_ensemble(mesh=)` on ensemble-8 and
+    `sample_chains(mesh=)` on phase 26's Gaussian against their runs without
+    a mesh; with two cards or more, the same solve over min(count, 4)
+    cards, one process each, and its speed-up;
+32. export: phase 31's trained phi with a dynamic batch through
+    `export_phi`, saved and loaded in a fresh process that imports only
+    torch, at 2^20 points against phi; the NS operator of phase 29's width
+    through `export_pino_pde` against ``sol()``; us a call of each,
+    exported against eager.
 
 Phases 9, 11 to 19, 21 to 23 and 28 to 30 train through `solve`, which on the card runs each
 kind of step once as it is, then captures it as a CUDA graph and replays
 it: a counter sees the eager step and the capture, not the replays.  So
 the JSON line of kernels sums the launches of the eager paths (phases 5, 6,
-8 and 20), of phases 18 and 21 to 23, and of phase 26's jet sampler (whose
-draws replay a captured graph too), which set the counts to 0 just
+8 and 20), of phases 18 and 21 to 23, of phase 26's jet sampler (whose
+draws replay a captured graph too) and of phase 31's solve under the mesh,
+which set the counts to 0 just
 before each of their solves or samplers, read them just after and require the forward
 and backward kernels in them (the eager step and the capture) wherever the
 path takes second derivatives by Taylor mode; every other graph phase, like
 phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart; phases 27 to
-30 print theirs, which must be 0.  The last line is
+30 and 32 print theirs, which must be 0.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits non-zero and prints no result.
 
@@ -140,7 +155,9 @@ Cuts against the recipes, each named where its phase prints: phase 11 runs
 1000 of the separable stage's 15,000 steps, phase 13 10,000 of the dense
 stage's 333,000, phase 21's Laplace problem the steps that 20 s allow of
 30,000, phase 23's Burgers example 1,500 of 5,000; phase 27's Navier-Stokes
-check trains no step and takes 2 of the 12 family members.
+check trains no step and takes 2 of the 12 family members; phase 32's NS
+operator trains 25 of 8,000 steps (its export is measured, not its
+training), and phase 31's multi-card run (two cards or more) 60 steps.
 """
 
 from __future__ import annotations
@@ -148,6 +165,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -216,7 +234,7 @@ ADAPTIVE_STEPS = 300
 ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26)   # summed in the kernels line
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31)   # summed in the kernels line
 INTEGRAL_ORDER = 20         # nodes of each point's integral (phase 18)
 IDE_BATCH = 8_192
 IDE_STEPS = 3_000
@@ -2899,6 +2917,7 @@ def phase_ensembles(card: str) -> dict:
     ens_ms, ens = _ms_per_step(lambda cb: npde.solve_ensemble(
         prob, npde.adam(1e-3), maxiters=steps, n_ensemble=8,
         inner_steps=block, callback=cb), steps, block)
+    _TRAINED["ensemble"] = ens
     solo_ms, solo = _ms_per_step(lambda cb: npde.solve(
         prob, npde.adam(1e-3), maxiters=steps, inner_steps=block,
         callback=cb), steps, block)
@@ -2916,6 +2935,387 @@ def phase_ensembles(card: str) -> dict:
     print(f"[ensembles] tanh_jet2 launches {counts}")
     _require_counts("ensembles", counts, False)
     return counts
+
+
+SCALE_STEPS = 200           # phase 31: the solve under the mesh and without
+SCALE_BLOCK = 20
+SCALE_FIRST_RTOL = 1e-6     # first step's loss and gradient norm
+SCALE_FINAL_RTOL = 1e-4     # loss after SCALE_STEPS steps
+SCALE_RANK_STEPS = 60       # each rank's steps where the host has >= 2 cards
+SCALE_TURN_REPLAYS = 5      # replays a turn, timing the collective's cost
+EXPORT_POINTS = 2 ** 20     # phase 32: the exported phi's batch
+EXPORT_ABS = 1e-6           # its max abs difference from phi, f32, no TF32
+EXPORT_PINO_RTOL = 1e-5     # the exported NS operator against sol()
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+# phase 30's ensemble-8, which phase 31 runs again under the mesh, and
+# phase 31's trained phi and parameters, which phase 32 exports
+_TRAINED: dict = {}
+
+
+def _file_store(name: str) -> str:
+    """A fresh file store for a process group, under build/."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"{name}.store")
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _nccl_kernels(runner, start: int, n: int) -> int:
+    """Kernels with "nccl" in their names that a trace of ``n`` replays of
+    a warmed `GraphedSteps` shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(start, start + n):
+            runner(i)
+        torch.cuda.synchronize()
+    return sum(e.count for e in _device_events(prof)
+               if "nccl" in e.key.lower())
+
+
+def _runner(prob):
+    """A `GraphedSteps` over a `make_step` of ``prob`` (``mesh_shares``)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import GraphedSteps
+
+    rep = prob.pinnrep
+    lf = rep.loss_functions
+    step = npde.make_step(prob.loss, npde.adam(1e-3), rep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions,
+                          matmul_precision=rep.matmul_precision,
+                          mesh_shares=True)
+    carry = step.init(prob.init_params,
+                      rep.adaloss.init_state(1, 4, rep.dtype, "cuda"))
+    return GraphedSteps(step, carry,
+                        torch.Generator(device="cuda").manual_seed(0))
+
+
+def _replay_ms(runner, n: int) -> float:
+    """ms a replay of a warmed `GraphedSteps` over ``n`` replays."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(2, 2 + n):
+        runner(i)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def _scale_solve(prob, mesh, steps: int, block: int):
+    """``solve`` of ``prob`` for ``steps`` steps under ``mesh`` (or none)
+    -> (result, ms a replayed step after the first block)."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.parallel.mesh import use_mesh
+
+    def run(stamp):
+        with (use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            return npde.solve(prob, npde.adam(1e-3), maxiters=steps,
+                              inner_steps=block, callback=stamp,
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(5))
+
+    ms, res = _ms_per_step(run, steps, block)
+    return res, ms
+
+
+def scale_out_rank(rank: int, world: int, store: str) -> None:
+    """One rank of phase 31's multi-card run: bench's dense headline under
+    a mesh of ``world`` cards for SCALE_RANK_STEPS steps; rank 0 prints one
+    JSON line with its ms a step."""
+    import torch.distributed as dist
+
+    from neuralpde_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+    from neuralpde_tpu_torch.parallel.mesh import make_mesh
+
+    initialize_distributed(f"file://{store}", world, rank)
+    try:
+        mesh = make_mesh()
+        prob = bench_problem(BATCH, MICROBATCH, "cuda")
+        res, ms = _scale_solve(prob, mesh, SCALE_RANK_STEPS, SCALE_BLOCK)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"ms": ms, "loss": res.objective,
+                          "graphs": res.aux["cuda_graph"]}), flush=True)
+
+
+def _multi_card(card: str, world: int, ms_one: float) -> None:
+    """Phase 31 over ``world`` cards, one process each: the same global
+    batch, ms a step against one card's."""
+    store = _file_store("phase31-multi")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; c.scale_out_rank("
+         f"{r}, {world}, {store!r})"], cwd=root,
+        env={**os.environ, "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"scale-out rank failed: {out[-3000:]}")
+    got = json.loads([ln for ln in outs[0].splitlines()
+                      if ln.startswith("{")][-1])
+    print(f"[scale-out] {world} cards, one process each, global batch "
+          f"{BATCH}: {got['ms']:.3f} ms a step against {ms_one:.3f} ms on "
+          f"one card under the mesh: speed-up {ms_one / got['ms']:.3f} "
+          f"(ideal {world}); loss after {SCALE_RANK_STEPS} steps "
+          f"{got['loss']:.6g}; graphs {got['graphs']}; {card}")
+
+
+def phase_scale_out(card: str) -> dict:
+    """Scale-out on the card: one rank of an NCCL process group
+    (`initialize_distributed`), bench's dense headline through `solve`
+    under `use_mesh(make_mesh())` with the gradient all-reduce captured in
+    the step's graph, against the same solve without a mesh; then
+    `solve_ensemble(mesh=)` on ensemble-8 and `sample_chains(mesh=)` on
+    phase 26's Gaussian against their runs without a mesh."""
+    import torch.distributed as dist
+
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch import accuracy
+    from neuralpde_tpu_torch.bayesian import hmc
+    from neuralpde_tpu_torch.compile.lower import depvar_params
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from neuralpde_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+    from neuralpde_tpu_torch.parallel.mesh import make_mesh, no_mesh, use_mesh
+    from neuralpde_tpu_torch.train import _side_stream
+
+    store = _file_store("phase31")
+    initialize_distributed(f"file://{store}", 1, 0)
+    try:
+        mesh = make_mesh()
+        print(f"[scale-out] NCCL process group of {dist.get_world_size()} "
+              f"rank(s), mesh {mesh.shape} on {mesh.device}")
+        prob = bench_problem(BATCH, MICROBATCH, "cuda")
+
+        # the first step (eager), the capture, then replays in turns
+        # without, under, under and without the mesh: the collective's cost
+        runners = {False: _runner(prob), True: _runner(prob)}
+        like = next(iter(runners[False].theta.values()))
+        first, ms = {}, {False: [], True: []}
+        with use_mesh(mesh), _side_stream(like):
+            for meshed in (False, True):
+                with (contextlib.nullcontext() if meshed else no_mesh()):
+                    loss, _ = runners[meshed](0)
+                    first[meshed] = (float(loss), math.sqrt(sum(
+                        float((v.grad.double() ** 2).sum())
+                        for v in runners[meshed].theta.values())))
+                    runners[meshed](1)
+            for meshed in (False, True, True, False):
+                with (contextlib.nullcontext() if meshed else no_mesh()):
+                    ms[meshed].append(_replay_ms(runners[meshed],
+                                                 SCALE_TURN_REPLAYS))
+            nccl = _nccl_kernels(runners[True], 2, 3)
+        del runners, like
+        (l0, n0), (l1, n1) = first[False], first[True]
+        d_first = max(abs(l1 - l0) / abs(l0), abs(n1 - n0) / abs(n0))
+        print(f"[scale-out] first step, no mesh vs mesh: loss {l0:.9g} vs "
+              f"{l1:.9g}, grad norm {n0:.9g} vs {n1:.9g} (the summed "
+              f"gradient): rel {d_first:.3e} (limit {SCALE_FIRST_RTOL})")
+        print(f"[scale-out] a replay of the captured step, in turns without, "
+              f"under, under, without the mesh: {ms[False][0]:.3f}, "
+              f"{ms[True][0]:.3f}, {ms[True][1]:.3f}, {ms[False][1]:.3f} ms "
+              f"({SCALE_TURN_REPLAYS} replays each): the collective's cost "
+              f"{np.mean(ms[True]) - np.mean(ms[False]):+.3f} ms a step; a "
+              f"trace of 3 replays under the mesh shows {nccl} NCCL kernel "
+              f"launch(es)")
+        if not d_first <= SCALE_FIRST_RTOL:
+            raise AssertionError("scale-out: the first step under the mesh "
+                                 "differs from the step without it")
+
+        plain, ms_plain = _scale_solve(prob, None, SCALE_STEPS, SCALE_BLOCK)
+        tj.reset_launch_counts()
+        meshed, ms_mesh = _scale_solve(prob, mesh, SCALE_STEPS, SCALE_BLOCK)
+        counts = tj.launch_counts()
+        d_final = abs(meshed.objective - plain.objective) / abs(
+            plain.objective)
+        points = BATCH + 4 * (BATCH // 8)
+        print(f"[scale-out] dense-poisson-w64 (batch {BATCH}, microbatch "
+              f"{MICROBATCH}, jet, Adam 1e-3, f32, TF32 off) through solve("
+              f"inner_steps={SCALE_BLOCK}), {SCALE_STEPS} steps: without a "
+              f"mesh {ms_plain:.3f} ms a step, under the mesh {ms_mesh:.3f} "
+              f"ms a step (the collective's cost {ms_mesh - ms_plain:+.3f} "
+              f"ms, {points / ms_mesh * 1e3:.6g} points/s); loss after "
+              f"{SCALE_STEPS} {plain.objective:.9g} vs {meshed.objective:.9g}"
+              f": rel {d_final:.3e} (limit {SCALE_FINAL_RTOL}); graphs "
+              f"without {plain.aux['cuda_graph']}, under the mesh "
+              f"{meshed.aux['cuda_graph']}; launches under the mesh (eager "
+              f"step and capture) {counts}; {card}")
+        if not d_final <= SCALE_FINAL_RTOL:
+            raise AssertionError("scale-out: the solve under the mesh "
+                                 "differs from the solve without it")
+        if not meshed.aux["cuda_graph"]["replays"] > 0:
+            raise AssertionError("scale-out: no replayed step under the mesh")
+        _require_launched("scale-out", counts, "tanh_jet2_forward",
+                          "tanh_jet2_backward")
+        _TRAINED.update(phi=prob.pinnrep.phi,
+                        params=depvar_params(meshed.u))
+
+        system = accuracy.poisson_2d_system()
+        eprob = npde.discretize(system, npde.PhysicsInformedNN(
+            npde.mlp([2, 64, 64, 1]), npde.GridTraining(1 / 63),
+            dtype=torch.float32, device="cuda"))
+        t0 = time.perf_counter()
+        ens_mesh = npde.solve_ensemble(eprob, npde.adam(1e-3), maxiters=600,
+                                       n_ensemble=8, inner_steps=100,
+                                       mesh=mesh)
+        s_mesh = time.perf_counter() - t0
+        # phase 30 ran it without a mesh
+        ens = _TRAINED.get("ensemble") or npde.solve_ensemble(
+            eprob, npde.adam(1e-3), maxiters=600, n_ensemble=8,
+            inner_steps=100)
+        same = (all(torch.equal(ens_mesh.members[k], v)
+                    for k, v in ens.members.items())
+                and torch.equal(ens_mesh.losses, ens.losses))
+        print(f"[scale-out] ensemble-8 (600 steps) under the mesh in "
+              f"{s_mesh:.2f} s: members and losses bit-equal to the run "
+              f"without a mesh {same}; graphs {ens_mesh.aux['cuda_graph']}")
+        if not same:
+            raise AssertionError("scale-out: the ensemble under the mesh "
+                                 "differs from the run without it")
+
+        mu = torch.tensor([1.0, -2.0], device="cuda")
+        sigma = torch.tensor([0.5, 2.0], device="cuda")
+
+        def logdensity(q):
+            return -0.5 * torch.sum(((q - mu) / sigma) ** 2)
+
+        q0s = 0.1 * torch.arange(4.0, device="cuda")[:, None].repeat(1, 2)
+        t0 = time.perf_counter()
+        chains_mesh = hmc.sample_chains(logdensity, q0s, seed=0,
+                                        draw_samples=1000, n_leapfrog=20,
+                                        mesh=mesh)
+        s_chains = time.perf_counter() - t0
+        chains = hmc.sample_chains(logdensity, q0s, seed=0,
+                                   draw_samples=1000, n_leapfrog=20)
+        same = torch.equal(chains_mesh, chains)
+        print(f"[scale-out] sample_chains: 4 HMC chains x 1000 draws of phase "
+              f"26's Gaussian under the mesh in {s_chains:.2f} s: draws "
+              f"bit-equal to the run without a mesh {same}")
+        if not same:
+            raise AssertionError("scale-out: the chains under the mesh "
+                                 "differ from the run without it")
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        _multi_card(card, min(n, 4), ms_mesh)
+    else:
+        print(f"[scale-out] {n} card: multi-rank runs were not made (they "
+              "need one card a rank)")
+    return counts
+
+
+def phase_export(card: str) -> dict:
+    """Export of phase 31's trained phi (dynamic batch), loaded in a fresh
+    process that imports only torch and evaluated at 2^20 points on the
+    card against phi; export of the NS vorticity operator of phase 29's
+    width against ``sol()``; us a call, exported against eager."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from neuralpde_tpu_torch.utils.export import export_phi, save_exported
+
+    tj.reset_launch_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phi, params = _TRAINED["phi"], _TRAINED["params"]
+    t0 = time.perf_counter()
+    blob, call = export_phi(phi, params, 2, dtype=torch.float32)
+    s_export = time.perf_counter() - t0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "phase32_phi.pt2")
+    cord_path = os.path.join(BUILD_DIR, "phase32_cord.npy")
+    out_path = os.path.join(BUILD_DIR, "phase32_out.npy")
+    save_exported(path, blob)
+    cord = torch.rand((2, EXPORT_POINTS), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(3))
+    np.save(cord_path, cord.cpu().numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        "extra = {'matmul_precision': ''}\n"
+        f"ep = torch.export.load({path!r}, extra_files=extra)\n"
+        "torch.backends.cuda.matmul.allow_tf32 = "
+        "extra['matmul_precision'] in ('high', 'default')\n"
+        f"c = torch.as_tensor(np.load({cord_path!r})).cuda()\n"
+        f"np.save({out_path!r}, ep.module()(c).cpu().numpy())\n"
+        "assert 'neuralpde_tpu_torch' not in sys.modules\n"
+        "print(extra['matmul_precision'])\n")
+    # the fresh process runs while this one exports the operator
+    t_fresh = time.perf_counter()
+    fresh = subprocess.Popen([sys.executable, "-c", code], cwd=BUILD_DIR,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        with torch.no_grad():
+            want = phi(cord, params)
+        us_exported = 1e3 * _event_ms(lambda: call(cord), 20)
+        us_eager = 1e3 * _event_ms(lambda: phi(cord, params), 20)
+        system, alg = _ns_alg(npde)
+        sol = npde.solve_pino_pde(system, alg, maxiters=25, inner_steps=25,
+                                  abstol=0.0)
+        ns = _export_ns(sol)
+        stdout, stderr = fresh.communicate(timeout=300)
+    finally:
+        if fresh.poll() is None:
+            fresh.kill()
+    s_fresh = time.perf_counter() - t_fresh
+    if fresh.returncode != 0:
+        raise AssertionError(f"export: the fresh process failed: "
+                             f"{stderr[-3000:]}")
+    got = torch.as_tensor(np.load(out_path), device="cuda")
+    err = float((got - want).abs().max())
+    print(f"[export] phase 31's phi (mlp([2,64,64,1]), f32) with a dynamic "
+          f"batch: exported in {s_export:.2f} s, {len(blob)} bytes; loaded in "
+          f"a fresh process that imports only torch ({s_fresh:.2f} s, beside "
+          f"the operator's export; precision {stdout.strip()!r}), at "
+          f"{EXPORT_POINTS} points on the card: max abs difference from phi "
+          f"{err:.3e} (limit {EXPORT_ABS}); {us_exported:.1f} us a call "
+          f"exported against {us_eager:.1f} us eager; {card}")
+    if not err <= EXPORT_ABS:
+        raise AssertionError("export: the loaded phi differs from phi")
+    print(ns["line"])
+    if not ns["rel"] <= EXPORT_PINO_RTOL:
+        raise AssertionError("export: the exported operator differs")
+    counts = tj.launch_counts()
+    _require_counts("export", counts, False)
+    return counts
+
+
+def _export_ns(sol) -> dict:
+    """Export of a trained NS operator against ``sol()``."""
+    from neuralpde_tpu_torch.utils.export import export_pino_pde
+
+    t0 = time.perf_counter()
+    blob, call = export_pino_pde(sol)
+    s_export = time.perf_counter() - t0
+    names = sorted(sol.input_samples)
+    inputs = [sol.p] + [sol.input_samples[n] for n in names]
+    with torch.no_grad():
+        want = sol()
+        got = call(*inputs)
+    rel = float((got - want).abs().max() / want.abs().max())
+    us_exported = 1e3 * _event_ms(lambda: call(*inputs), 20)
+    us_eager = 1e3 * _event_ms(lambda: sol(), 20)
+    return {"rel": rel, "line": (
+        f"[export] NS vorticity operator (FNO3D w16 m(8,8,4) d3 out 2, 33^2 "
+        f"x 9 grid, 12 members, 25 steps) with a dynamic family: exported in "
+        f"{s_export:.2f} s, {len(blob)} bytes; against sol(): rel "
+        f"{rel:.3e} (limit {EXPORT_PINO_RTOL}); {us_exported:.1f} us a call "
+        f"exported against {us_eager:.1f} us eager")}
 
 
 def _timed(label: str, fn, *args):
@@ -2959,7 +3359,9 @@ def main() -> int:
             27: lambda: phase_operators_card_vs_cpu(card),
             28: lambda: phase_pino_ode(card),
             29: lambda: phase_pino_pde(card),
-            30: lambda: phase_ensembles(card)}
+            30: lambda: phase_ensembles(card),
+            31: lambda: phase_scale_out(card),
+            32: lambda: phase_export(card)}
     totals: dict = {}
     for number, run in runs.items():
         LAUNCH_SHAPES.clear()

@@ -12,8 +12,13 @@ its step on the card, checkpoint/resume, Adam then L-BFGS), separable
 (distributions, `solve_sde`, the Fokker-Planck `SDEPINN`, HMC/NUTS and the
 Bayesian PINNs `BNNODE` and `BayesianPINN`) and the operator layer
 (`DeepONet`, the FNOs, `solve_pino_ode`, `solve_pino_pde` on the
-field-grid lowering, deep ensembles) for one NVIDIA H100, with
-hand-written Hopper kernels under `kernels/` and `csrc/`.  Public names are
+field-grid lowering, deep ensembles) on NVIDIA H100s, with
+hand-written Hopper kernels under `kernels/` and `csrc/`; scale-out is one
+process a card (`parallel.mesh`, `parallel.distributed`: data parallelism
+over collocation batches, separable axes, operator families, ensemble
+members and MCMC chains, and tensor parallelism of dense layers), and a
+trained solution or operator exports to a `torch.export` artifact
+(`utils.export`).  Public names are
 those of `neuralpde_tpu`.  This package imports no JAX.
 """
 
@@ -79,6 +84,10 @@ from .solvers import (
     PINOODESolution, PINOPDE, PINOPDESolution, SDEPINN, SDEProblem, SDEsol,
     discretize_ritz, neural_adapter, solve_dae, solve_ode, solve_pino_ode,
     solve_pino_pde, solve_pino_pde_ensemble, solve_sde, solve_sde_weak,
+)
+from .parallel.mesh import (
+    make_mesh, make_mesh_2d, replicate_params, shard_batch, shard_params_tp,
+    use_mesh,
 )
 from .parallel.ensemble import EnsembleResult, solve_ensemble
 from .bayesian import (

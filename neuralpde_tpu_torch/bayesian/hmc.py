@@ -37,15 +37,8 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from ..parallel.mesh import check_mesh, gather_ranks, mesh_slice, no_mesh
 from ..train import _side_stream
-
-ROADMAP_MESH = ("mesh= shards chains over devices: not on one card "
-                "(slice 10 of ROADMAP.md, scale-out)")
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(ROADMAP_MESH)
 
 
 class DualAveragingState(NamedTuple):
@@ -566,13 +559,32 @@ def sample_chains(logdensity, q0s, generator=None, draw_samples: int = 1000,
     `torch.func.vmap` (``randomness="different"``): one draw of all
     chains is one function, captured and replayed on the card like
     `sample`'s.  ``"hmcda"`` and ``"nuts"`` chains, whose trajectories
-    have data-dependent lengths, run one after another.  ``mesh`` must be
-    None on one card."""
+    have data-dependent lengths, run one after another.
+
+    ``mesh`` (a `parallel.mesh.Mesh`) shards the chains over its ranks
+    (their count a multiple of the mesh size): each rank runs its block of
+    chains, without the mesh for their log-densities, and the draws are
+    gathered, so every rank returns all of them.  Every rank searches the
+    step sizes of all chains and, for ``"hmc"``, draws the noise of all
+    chains and keeps its rows, so chain c's draws are those of the run
+    without a mesh.  A rank's ``"hmcda"``/``"nuts"`` chains continue one
+    another on its generator, as all chains do without a mesh, so there
+    only the first rank's chains match that run."""
     del chain_axis
-    _no_mesh(mesh)
+    mesh = check_mesh(mesh)
     q0s = torch.as_tensor(q0s)
+    mine = (mesh_slice(len(q0s), mesh, "chains") if mesh is not None
+            else slice(0, len(q0s)))
     if generator is None:
         generator = torch.Generator(device=q0s.device).manual_seed(seed)
+    with no_mesh():
+        samples = _chains(logdensity, q0s, generator, draw_samples, mine,
+                          graphs, kw)
+    return samples if mesh is None else gather_ranks(samples, mesh)
+
+
+def _chains(logdensity, q0s, generator, draw_samples, mine, graphs, kw):
+    """`sample_chains` of the chains ``mine`` -> (chains, draws, dim)."""
     kernel = kw.get("kernel", "hmc")
     eps = [find_good_stepsize_traced(logdensity, q0, generator)
            for q0 in q0s]
@@ -584,18 +596,19 @@ def sample_chains(logdensity, q0s, generator=None, draw_samples: int = 1000,
         return torch.stack([
             _nuts_arrays(logdensity, q0, generator, draw_samples,
                          init_step_size=e, graphs=graphs, **kw2)[0]
-            for q0, e in zip(q0s, eps)])
+            for q0, e in zip(q0s[mine], eps[mine])])
     if kernel != "hmc":
         return torch.stack([
             _sample_arrays(logdensity, q0, generator, draw_samples,
                            init_step_size=e, graphs=graphs, **kw)[0]
-            for q0, e in zip(q0s, eps)])
+            for q0, e in zip(q0s[mine], eps[mine])])
 
     n_adapt = kw.get("n_adapt")
     n_adapt = n_adapt if n_adapt is not None else (2 * draw_samples) // 3
     w1, w2 = _windows(n_adapt)
     vg = _value_and_grad(logdensity)
-    states = [_initial_state(vg, q0, e) for q0, e in zip(q0s, eps)]
+    states = [_initial_state(vg, q0, e)
+              for q0, e in zip(q0s[mine], eps[mine])]
     chain = _Chains({k: torch.stack([st[k] for st in states])
                      for k in _STATE}, draw_samples)
     draw = vmap(_hmc_draw(vg, kw.get("n_leapfrog", 30), n_adapt, w1, w2,
@@ -603,9 +616,13 @@ def sample_chains(logdensity, q0s, generator=None, draw_samples: int = 1000,
                 in_dims=(0, 0, 0, None), randomness="different")
     source = GeneratorNoise(generator)
     s = chain.s
+    every = len(q0s) != s["q"].shape[0]
 
     def one():
-        z, u = source.draw(chain.it, s["q"].shape, q0s.dtype, q0s.device)
+        # the noise of every chain, then this rank's rows
+        z, u = source.draw(chain.it, q0s.shape, q0s.dtype, q0s.device)
+        if every:
+            z, u = z[mine], u[mine]
         chain.store(*draw(s, z, u, chain.it))
 
     step = _Graphed(one, "hmc draw of the chains",

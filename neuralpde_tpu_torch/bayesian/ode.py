@@ -22,6 +22,7 @@ from torch.func import functional_call, jvp, vmap
 
 from ..config import default_float
 from ..ops.distributions import Normal, Particles, mvnormal_diag_logpdf
+from ..parallel.mesh import check_mesh
 from ..solvers.ode import _batched_f
 from ..solvers.problems import ODEProblem
 from ..strategies import (
@@ -197,9 +198,9 @@ def ahmc_bayesian_pinn_ode(
     """Reference: ext/bpinn/advancedHMC_MCMC.jl:390-581.  Returns
     ``(samples, sampler_stats, ltd)``: samples (draws, dim), or (chains,
     draws, dim) with ``nchains > 1``.  Runs on ``device``, ``"cuda"``
-    unless given; ``mesh`` must be None on one card."""
+    unless given; ``mesh`` shards the chains (`hmc.sample_chains`)."""
     del progress
-    hmc._no_mesh(mesh)
+    check_mesh(mesh)
     device = torch.device(device if device is not None else "cuda")
     dtype = default_float()
     dataset = dataset or []
@@ -248,7 +249,8 @@ def ahmc_bayesian_pinn_ode(
         samples = hmc.sample_chains(
             ltd, _chain_starts(ltd.n_nn, theta0, nchains, seed), generator,
             draw_samples, kernel=Kernel, n_leapfrog=n_leapfrog,
-            target_accept=target_accept, lam=lam, max_depth=max_depth)
+            target_accept=target_accept, lam=lam, max_depth=max_depth,
+            mesh=mesh)
         return samples, None, ltd
     res = hmc.sample(ltd, theta0, generator, draw_samples, kernel=Kernel,
                      n_leapfrog=n_leapfrog, target_accept=target_accept,

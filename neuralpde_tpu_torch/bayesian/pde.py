@@ -23,6 +23,7 @@ from torch.func import vmap
 from ..compile.discretize import BayesianPINN, symbolic_discretize
 from ..compile.lower import LoweringContext, build_residual_function
 from ..ops.distributions import Normal, Particles, mvnormal_diag_logpdf
+from ..parallel.mesh import check_mesh
 from ..strategies import GridTraining, generate_training_sets, julia_range
 from ..symbolic.expr import Call, DepVarCall, Deriv, Eq, IntegralExpr, Sym
 from ..symbolic.system import infimum, supremum
@@ -319,13 +320,13 @@ def ahmc_bayesian_pinn_pde(
         progress: bool = False, verbose: bool = False) -> BPINNsolution:
     """(reference: ext/bpinn/PDE_BPINN.jl:371-635).  Runs on the
     discretization's device (``"cuda"`` unless it was given another);
-    ``mesh`` must be None on one card.
+    ``mesh`` shards the chains (`hmc.sample_chains`).
 
     ``estim_collocate=True`` enables the dataset-collocation
     log-likelihood — the reference's Dict_differentials path, which here
     needs no user-supplied differential mask."""
     del progress
-    hmc._no_mesh(mesh)
+    check_mesh(mesh)
     pinnrep = symbolic_discretize(pde_system, discretization)
     dataset_pde, dataset_bc = discretization.dataset
 
@@ -377,7 +378,7 @@ def ahmc_bayesian_pinn_pde(
         chains = hmc.sample_chains(
             ltd, _chain_starts(ltd.n_nn, theta0, nchains, seed), generator,
             draw_samples, kernel=Kernel, n_leapfrog=n_leapfrog,
-            target_accept=target_accept, max_depth=max_depth)
+            target_accept=target_accept, max_depth=max_depth, mesh=mesh)
         sols = []
         for i in range(nchains):
             curves, est_nn, est_p, tp = inference(chains[i], pinnrep,

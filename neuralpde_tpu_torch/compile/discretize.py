@@ -10,7 +10,7 @@ flat parameter dict, and wraps them into a `TrainingProblem` for
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, ClassVar
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ from ..adaptive import AbstractAdaptiveLoss, NonAdaptiveLoss
 from ..config import default_float, matmul_precision
 from ..logging_utils import LogOptions
 from ..ops.derivatives import DerivativeEngine
+from ..parallel.mesh import share
 from ..strategies import QuadratureTraining, TrainingStrategy
 from ..symbolic.expr import Call, Sym, expand_derivatives
 from ..symbolic.system import PDESystem
@@ -201,7 +202,10 @@ class PINNRepresentation:
 @dataclass
 class TrainingProblem:
     """OptimizationProblem analog returned by `discretize`
-    (reference: src/discretize.jl:774-778)."""
+    (reference: src/discretize.jl:774-778).  Under a mesh its losses return
+    rank shares (`parallel.mesh`), which `solve` sums."""
+
+    mesh_shares: ClassVar[bool] = True
 
     loss: Callable            # (theta, lstate) -> (total, aux-dict)
     init_params: Any
@@ -441,7 +445,8 @@ def _assemble_loss_functions(pinnrep, datafree_pde,
             theta_ = ({d: depvar_params(theta, d) for d in depvars}
                       if multioutput else depvar_params(theta))
             p_ = theta.get("p") if param_estim else None
-            add = additional_loss(phi_for_user, theta_, p_)
+            # computed whole on every rank: its share under a mesh
+            add = share(additional_loss(phi_for_user, theta_, p_))
             total = total + ada["additional_weights"].detach()[0] * add
             aux["additional_loss"] = add
         aux["full_weighted_loss"] = total

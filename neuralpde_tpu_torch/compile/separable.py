@@ -33,8 +33,13 @@ from torch.utils.checkpoint import checkpoint
 from ..nn.separable import SeparableNet
 from ..ops.quadrature import rule_tensors
 from ..ops.sampling import uniform_nodes
+from ..parallel.mesh import (
+    data_rank, data_size, gather_over_data, share, shard_axis_nodes,
+    sum_over_data,
+)
 from ..strategies import (
-    TrainingStrategy, _mean_sq_loss, _msq, generate_training_sets, julia_range,
+    TrainingStrategy, _mean_sq_loss, _msq, _msq_at, generate_training_sets,
+    julia_range,
 )
 from ..symbolic.expr import (
     PRIMITIVES, Call, DepVarCall, Deriv, Eq, Expr, IntegralExpr, Num, Param,
@@ -54,6 +59,18 @@ _FACTORIZATION_ERROR_MARKS = ("separable fast path",)
 # dense-fallback tensor grids beyond this size would materialize the full
 # N^d pointwise evaluation the factorized path exists to avoid
 _DENSE_FALLBACK_MAX_POINTS = 1 << 22
+
+
+def _shard_nodes(nodes: list):
+    """``(nodes, split)``: under a mesh, axis 0's nodes cut to this rank's
+    slice (`shard_axis_nodes`), so the rank contracts its rows of the grid;
+    ``split`` is 0 when they were cut, else None."""
+    if not nodes:
+        return nodes, None
+    first = shard_axis_nodes(nodes[0])
+    if first is nodes[0]:
+        return nodes, None
+    return [first] + list(nodes[1:]), 0
 
 
 def _is_factorization_error(e: BaseException) -> bool:
@@ -433,19 +450,29 @@ class SeparableTraining(TrainingStrategy):
 
         eps = self.causal_eps
 
-        def causal_reduce(r, t_pos, dt):
+        def causal_reduce(r, t_pos, dt, split):
             """Per-t-node causal weighting of a grid residual: one slab per
             grid node, the exponent discretizing w(t) = exp(-eps ∫₀ᵗ L) as
             ``Σ_{j<i} L_j·Δt`` (``mean(w·L)`` == plain mean-square at
-            eps == 0)."""
+            eps == 0).  ``split``: the residual dimension whose nodes are
+            this rank's slice under a mesh (None: whole); the weights come
+            from the global L, and the loss is the rank's share."""
             sq = r * r
             if acc is not None:
                 sq = sq.to(acc)
             other = tuple(d for d in range(sq.ndim) if d != t_pos)
             L = torch.mean(sq, dim=other) if other else sq
-            csum = (torch.cumsum(L, dim=0) - L) * dt
+            if split is None:
+                Lg = L
+            elif split == t_pos:        # the rank holds its time nodes
+                Lg = gather_over_data(L.detach())
+            else:                       # the rank's part of every node's mean
+                Lg = sum_over_data(L.detach()) / data_size()
+            csum = (torch.cumsum(Lg, dim=0) - Lg) * dt
             w = torch.exp(-eps * csum).detach()
-            return torch.mean(w * L), w
+            wl = (w if split != t_pos
+                  else w.narrow(0, data_rank() * L.shape[0], L.shape[0]))
+            return share(torch.mean(wl * L)), w
 
         ge = pinnrep.gradient_enhanced
         remat = pinnrep.remat
@@ -526,11 +553,13 @@ class SeparableTraining(TrainingStrategy):
                         ns.append(draw)
                     return ns
 
+            row = 1 if stacked else 0   # the residual dimension of axis 0
+
             if t_pos is None:
                 def loss(theta, generator, residual=residual,
                          nodes_of=nodes_of):
-                    return _msq(residual(nodes_of(generator, theta), theta),
-                                acc)
+                    nodes, _ = _shard_nodes(nodes_of(generator, theta))
+                    return share(_msq(residual(nodes, theta), acc))
                 return loss
 
             lo, hi = spans[self.causal]
@@ -539,9 +568,10 @@ class SeparableTraining(TrainingStrategy):
             dt = (hi - lo) / max(n_t - 1, 1)
 
             def weighted(theta, generator, residual=residual,
-                         nodes_of=nodes_of, t_pos=t_pos, dt=dt):
-                return causal_reduce(residual(nodes_of(generator, theta),
-                                              theta), t_pos, dt)
+                         nodes_of=nodes_of, t_pos=t_pos, dt=dt, row=row):
+                nodes, split = _shard_nodes(nodes_of(generator, theta))
+                return causal_reduce(residual(nodes, theta), t_pos, dt,
+                                     None if split is None else row)
 
             self._weight_fns.append(lambda theta, generator:
                                     weighted(theta, generator)[1])
@@ -585,7 +615,7 @@ class SeparableTraining(TrainingStrategy):
                         for a, b in zip(args, bounds)]
                 grids = torch.meshgrid(*cols, indexing="ij")
                 cord = torch.stack([g.reshape(-1) for g in grids])
-                return _msq(df(cord, theta), acc)
+                return _msq_at(df, cord, theta, acc)
 
             return loss
 

@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import data_rank, data_size, share, shard_batch
 from ..strategies import (
     TrainingStrategy, _mean_sq_loss, generate_training_sets,
 )
@@ -364,11 +365,15 @@ class WeakTraining(TrainingStrategy):
 
         def loss(theta, generator=None):
             del generator
-            r = rows(theta)
+            # under a mesh, the rank's rows where they divide (its share of
+            # the sum), else all of them at 1/W
+            r = rows(theta, shard=True)
+            w = wj if r.shape[0] == wj.shape[0] else shard_batch(wj[None])[0]
             sq = r * r
             if acc is not None:
                 sq = sq.to(acc)
-            return torch.sum(sq * wj)
+            total = torch.sum(sq * w)
+            return share(total) if w is wj else total
 
         return loss
 
@@ -435,8 +440,9 @@ class WeakTraining(TrainingStrategy):
             volume = float(np.prod([spans[s.name][1] - spans[s.name][0]
                                     for s in syms])) if syms else 1.0
 
-            def quad_rows(theta):
-                return datafree(cord, theta).reshape(-1)
+            def quad_rows(theta, shard=False):
+                return datafree(shard_batch(cord) if shard else cord,
+                                theta).reshape(-1)
 
             if with_meta:
                 return quad_rows, W / volume, None
@@ -481,10 +487,21 @@ class WeakTraining(TrainingStrategy):
         act = act.reshape(-1)                    # (E1·K1·E2·K2·..,) layout
         wrow = act / act.sum()
 
-        def weak_rows(theta):
+        def weak_rows(theta, shard=False):
+            """The weak residual rows; ``shard=True`` under a mesh whose
+            data axis divides the elements of the first axis: this rank's
+            elements only (their nodes are its contiguous slice of the
+            points, and their rows a contiguous slice of the rows)."""
+            n, e1 = data_size(), grid_shape[0]
+            own = shard and n > 1 and e1 % n == 0
+            c, shape = ((shard_batch(cord), (e1 // n,) + grid_shape[1:])
+                        if own else (cord, grid_shape))
             F = None
             for rfn, mats in compiled:
-                r = rfn(cord, theta).reshape(grid_shape)
+                r = rfn(c, theta).reshape(shape)
+                if own:
+                    mats = [mats[0].narrow(0, data_rank() * (e1 // n),
+                                           e1 // n)] + mats[1:]
                 proj = torch.einsum(spec, r, *mats)
                 F = proj if F is None else F + proj
             return F.reshape(-1)

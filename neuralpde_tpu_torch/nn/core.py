@@ -36,6 +36,9 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..config import default_float
 from ..kernels.tanh_jet import tanh_jet2
+from ..parallel.mesh import (
+    CopyToModel, GatherFromModel, ReduceFromModel, model_group,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -291,13 +294,52 @@ class Dense(Module):
             return self.weight @ x
         return torch.addmm(self.bias, self.weight, x)
 
+    @property
+    def column_parallel(self) -> bool:
+        """The weight holds this rank's output rows (`shard_params_tp`)."""
+        return self.weight.shape[0] != self._out
+
+    @property
+    def row_parallel(self) -> bool:
+        """The weight holds this rank's input columns."""
+        return self.weight.shape[1] != self._in
+
     def forward(self, x, series: Sequence[torch.Tensor] | None = None):
-        z = self._affine(x)
+        if self.column_parallel or self.row_parallel:
+            z, zs = self._tensor_parallel(x, series)
+        else:
+            z = self._affine(x)
+            zs = None if series is None else [self.weight @ xk
+                                              for xk in series]
         if series is None:
             return self.activation(z)
-        zs = [self.weight @ xk for xk in series]
         a, a_series = TAYLOR_RULES[self.activation](z, zs)
         return a, tuple(a_series)
+
+    def _tensor_parallel(self, x, series):
+        """The affine map and its series on tensor-parallel parameters
+        (`parallel.mesh.shard_params_tp`).  Column-parallel: this rank's
+        output rows, with no collective (the cotangents of the input are
+        summed over the model axis).  Row-parallel: the rank's partial
+        products over its input columns, summed over the model axis, then
+        the bias, once.  The activation that follows is elementwise, so
+        it (and `tanh_jet2`) runs on the local rows unchanged."""
+        group = model_group()
+        if group is None:
+            raise ValueError(
+                f"Dense({self._in}, {self._out}) got a weight of shape "
+                f"{tuple(self.weight.shape)}: tensor-parallel parameters "
+                "need an active mesh with a model axis")
+        ins = [x] + list(series or ())
+        if self.column_parallel:
+            ins = [CopyToModel.apply(v, group) if v.requires_grad else v
+                   for v in ins]
+            z = self._affine(ins[0])
+            return z, [self.weight @ v for v in ins[1:]]
+        parts = ReduceFromModel.apply(
+            torch.stack([self.weight @ v for v in ins]), group)
+        z = parts[0] if self.bias is None else parts[0] + self.bias
+        return z, list(parts[1:])
 
 
 class Chain(Module):
@@ -329,12 +371,28 @@ class Chain(Module):
             layer.reset_parameters(generator)
 
     def forward(self, x, series: Sequence[torch.Tensor] | None = None):
-        for layer in self.layers:
+        layers = self.layers
+        group = model_group()
+        for i, layer in enumerate(layers):
             if series is None:
                 x = layer(x)
             else:
                 x, series = layer(x, series)
+            if group is not None and _split_output(layer, layers[i + 1:]):
+                # a column-parallel output that no row-parallel layer takes
+                x = GatherFromModel.apply(x, group)
+                if series is not None:
+                    series = tuple(GatherFromModel.apply(v, group)
+                                   for v in series)
         return x if series is None else (x, series)
+
+
+def _split_output(layer, rest) -> bool:
+    """Whether ``layer`` leaves this rank's rows only and the next layer is
+    not a row-parallel `Dense` that takes them."""
+    if not (isinstance(layer, Dense) and layer.column_parallel):
+        return False
+    return not (rest and isinstance(rest[0], Dense) and rest[0].row_parallel)
 
 
 def mlp(sizes: Sequence[int], activation: Callable = tanh,

@@ -15,6 +15,12 @@ stacked leaves with one `train.Adam`, which being elementwise is each
 member's Adam.  On the card that step is captured as one CUDA graph and
 replayed, as `solve`'s is.
 
+``mesh=`` shards the member axis over the ranks of a mesh
+(`parallel.mesh`): each rank trains its ``n_ensemble / W`` members in its
+own step, which holds no collective, and the ranks gather the members'
+losses once a block (so that they stop together) and the members at the
+end, so every rank returns the whole result.
+
 Usage:
     prob = discretize(system, PhysicsInformedNN(mlp([1, 16, 1]), strat))
     res = solve_ensemble(prob, adam(2e-3), maxiters=2000, n_ensemble=8)
@@ -38,6 +44,7 @@ import torch
 from ..compile.lower import depvar_params
 from ..config import matmul_precision
 from ..train import GraphedSteps, TrainStep, _side_stream, adam
+from .mesh import check_mesh, gather_ranks, mesh_slice, no_mesh
 
 
 @dataclass
@@ -180,7 +187,15 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
       draws come from ``generator`` (default: seeded with ``seed`` on the
       problem's device); each member draws its own points, after the
       members before it.
-    * ``mesh``: must be None on one card.
+    * ``mesh``: shard the members over the mesh's ranks (module note);
+      ``n_ensemble`` must be a multiple of its size.  Every rank draws all
+      the initializations and keeps its own, so member m starts from the
+      same parameters whatever the mesh; a rank's members draw their points
+      from its generator (default: seeded with ``seed`` plus the rank), so
+      with a stochastic strategy member m's points depend on the mesh
+      (with a deterministic one the members are those of the run without
+      it).  ``checkpoint_path`` then holds one ``rank<r>`` directory a
+      rank.
     * Stopping: ``abstol`` stops when the best member crosses it; a member
       that diverges does not stop the run (argmin ignores it); all members
       diverged does.
@@ -196,10 +211,9 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
     ``optimizer`` must be elementwise (`adam`); `lbfgs` raises.  On the card
     ``res.aux["cuda_graph"]`` counts the captures and replays.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= shards ensemble members over devices, which comes with "
-            "slice 10 (parallel/mesh.py); on one card pass mesh=None")
+    mesh = check_mesh(mesh)
+    mine = (mesh_slice(n_ensemble, mesh, "n_ensemble") if mesh is not None
+            else slice(0, n_ensemble))
     optimizer = optimizer or adam(1e-3)
     rep = getattr(prob, "pinnrep", None)
     if rep is None and member_init is None:
@@ -220,15 +234,20 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
 
     init_gen = torch.Generator().manual_seed(seed)
     init = member_init or _member_init_fn(prob)
-    inits = [init(init_gen) for _ in range(n_ensemble)]
+    inits = [init(init_gen) for _ in range(n_ensemble)][mine]
+    n_run = len(inits)
     params = {k: torch.stack([torch.as_tensor(p[k]).to(device)
                               for p in inits]) for k in inits[0]}
     one = adaloss.init_state(len(pde_fns), len(bc_fns), dtype, device)
-    ada_state = {k: torch.stack([v] * n_ensemble) for k, v in one.items()}
+    ada_state = {k: torch.stack([v] * n_run) for k, v in one.items()}
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(device=device).manual_seed(
+            seed + mine.start // max(n_run, 1))
+    if mesh is not None and checkpoint_path is not None:
+        checkpoint_path = os.path.join(checkpoint_path,
+                                       f"rank{mine.start // n_run}")
 
-    step = EnsembleStep(prob.loss, optimizer, n_ensemble,
+    step = EnsembleStep(prob.loss, optimizer, n_run,
                         adaloss if rep is not None else None, pde_fns,
                         bc_fns, precision)
     carry = step.init(params, ada_state)
@@ -242,7 +261,7 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
     )
 
     it = 0
-    losses = torch.full((n_ensemble,), math.inf, dtype=dtype, device=device)
+    losses = torch.full((n_run,), math.inf, dtype=dtype, device=device)
     if has_checkpoint(checkpoint_path):
         it = restore_checkpoint(checkpoint_path, theta, opt, generator,
                                 ada_state)[2]
@@ -263,7 +282,9 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
     graphed = (GraphedSteps(step, carry, generator)
                if torch.device(device).type == "cuda" else None)
     history = []
-    with _side_stream(next(iter(theta.values()))):
+    # the members' losses shard no batch of their own, and hold no
+    # collective in the step
+    with no_mesh(), _side_stream(next(iter(theta.values()))):
         while it < maxiters:
             for i in range(it, it + inner_steps):
                 if graphed is not None:
@@ -273,7 +294,8 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
                                       step.reweights(i))
             it += inner_steps
             losses = out.clone()
-            lnp = losses.cpu().numpy()
+            lnp = (losses if mesh is None
+                   else gather_ranks(losses, mesh)).cpu().numpy()
             history.append((it, lnp))
             if len(history) > history_cap:
                 history = _keep_newest(history)
@@ -295,6 +317,9 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
     if checkpoint_path is not None and it > last_ckpt:
         save()
     aux = {"cuda_graph": graphed.stats()} if graphed is not None else {}
-    return EnsembleResult(members={k: v.detach() for k, v in theta.items()},
-                          losses=losses, iterations=it, history=history,
-                          pinnrep=rep, aux=aux)
+    members = {k: v.detach() for k, v in theta.items()}
+    if mesh is not None:
+        members = {k: gather_ranks(v, mesh) for k, v in members.items()}
+        losses = gather_ranks(losses, mesh)
+    return EnsembleResult(members=members, losses=losses, iterations=it,
+                          history=history, pinnrep=rep, aux=aux)

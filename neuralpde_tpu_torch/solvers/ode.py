@@ -286,11 +286,13 @@ class _SimpleProblem:
     `PINNRepresentation`, so it trains on its parameters' device, under
     ``matmul_precision`` (None: TF32 off)."""
 
-    def __init__(self, loss, init_params, matmul_precision=None):
+    def __init__(self, loss, init_params, matmul_precision=None,
+                 mesh_shares=False):
         self._loss = loss
         self.init_params = init_params
         self.pinnrep = None
         self.matmul_precision = matmul_precision
+        self.mesh_shares = mesh_shares
 
     def loss(self, theta, lstate):
         return self._loss(theta, lstate["generator"]), {}

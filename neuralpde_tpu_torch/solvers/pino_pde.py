@@ -39,6 +39,9 @@ from ..compile.lower import depvar_params
 from ..config import default_float, matmul_precision
 from ..nn.deeponet import DeepONetPDE
 from ..nn.fno import FNO1D, FNO2D, FNO3D
+from ..parallel.mesh import (
+    check_mesh, data_size, no_mesh, share, shard_batch, sum_over_data,
+)
 from ..strategies import GridTraining, TrainingStrategy, julia_range
 from ..symbolic.system import PDESystem, infimum, supremum
 from ..train import SolveResult, adam, solve as train_solve
@@ -172,6 +175,7 @@ class PINOPDESolution:
     input_axes: Any = None     # {name: [grid-axis indices]}
     loss_fn: Any = None        # the trained objective (theta, generator)
     retcode: str = "Success"
+    matmul_precision: str | None = None   # the solve's (PINOPDE's)
 
     def __call__(self, p=None, grids=None, input_values=None):
         return self.interp(*_eval_inputs(p, grids, input_values, self.p,
@@ -413,22 +417,28 @@ def _build(pde_system: PDESystem, alg: PINOPDE, device=None) -> _Built:
             raise ValueError("causal weighting needs >= 2 time nodes")
         dt_node = float(grids_cpu[t_ax][1] - grids_cpu[t_ax][0])
 
-    def _family_loss(params, p_cols, samples):
+    def _family_loss(params, p_cols, samples, shards: int = 1):
+        """The loss of a family; ``shards`` > 1: the family is this rank's
+        1/shards of the global one under a mesh, and the result its share
+        (the causal weights from the slice means of the global family)."""
         fields = eval_fields(params, p_cols, grids, samples)
         rows = [r(fields, p_cols) for r in residuals]
         if alg.causal_eps is None:
-            return fields, sum(torch.mean(r ** 2) for r in rows)
+            loss = sum(torch.mean(r ** 2) for r in rows)
+            return fields, loss if shards == 1 else loss / shards
         loss = 0.0
         for i, r in enumerate(rows):
             if i < n_eq and r.ndim == ndim + 1 and r.shape[t_ax] > 1:
                 other = tuple(a for a in range(r.ndim) if a != t_ax)
                 L = torch.mean(r ** 2, dim=other)            # (T,)
-                csum = torch.cumsum(L, dim=0) - L            # exclusive
+                Lg = (L if shards == 1
+                      else sum_over_data(L.detach()) / shards)
+                csum = torch.cumsum(Lg, dim=0) - Lg          # exclusive
                 w = torch.exp(-alg.causal_eps * dt_node * csum).detach()
                 loss = loss + torch.mean(w * L)
             else:
                 loss = loss + torch.mean(r ** 2)
-        return fields, loss
+        return fields, loss if shards == 1 else loss / shards
 
     def total_loss(theta, generator):
         with prec():
@@ -436,11 +446,18 @@ def _build(pde_system: PDESystem, alg: PINOPDE, device=None) -> _Built:
                 p_cols, samples = _draw_family(generator)
             else:
                 p_cols, samples = p_tr, input_samples
+            n = data_size()
+            if n > 1 and n_fam % n == 0 and alg.additional_loss is None:
+                # family-axis data parallelism: each rank evaluates its
+                # members (FFTs included) and returns its share
+                return _family_loss(
+                    depvar_params(theta), shard_batch(p_cols),
+                    {k: shard_batch(v) for k, v in samples.items()}, n)[1]
             fields, loss = _family_loss(depvar_params(theta), p_cols,
                                         samples)
             if alg.additional_loss is not None:
                 loss = loss + alg.additional_loss(fields, theta)
-        return loss
+        return share(loss)
 
     b = _Built()
     b.total_loss = total_loss
@@ -456,6 +473,7 @@ def _build(pde_system: PDESystem, alg: PINOPDE, device=None) -> _Built:
     b.eval_fields = eval_fields
     b.residuals = residuals
     b.prec = prec
+    b.matmul_precision = alg.matmul_precision
     b.dtype = dtype
     b.device = device
     return b
@@ -492,7 +510,8 @@ def _make_solution(b, theta_trained, res) -> PINOPDESolution:
                            input_samples=b.input_samples,
                            input_axes=dict(b.fn_axes), depvars=b.depvars,
                            interp=interp, original=res,
-                           loss_fn=b.total_loss)
+                           loss_fn=b.total_loss,
+                           matmul_precision=b.matmul_precision)
 
 
 @dataclass
@@ -572,17 +591,17 @@ def solve_pino_pde_ensemble(pde_system: PDESystem, alg: PINOPDE, *,
     m's parameters are the chain's reset from the CPU generator seeded with
     ``seed`` (members drawn in order), so member m with a deterministic
     family follows a solo ``solve_pino_pde`` from the same parameters.
-    ``mesh`` must be None on one card."""
+    ``mesh`` shards the member axis (`solve_ensemble`); the loss is built
+    and run without the family-axis sharding, which would use the same
+    ranks."""
     from ..parallel.ensemble import solve_ensemble
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= shards ensemble members over devices, which comes with "
-            "slice 10 (parallel/mesh.py); on one card pass mesh=None")
+    check_mesh(mesh)
     if alg.init_params is not None:
         raise ValueError("solve_pino_pde_ensemble draws per-member inits; "
                          "init_params= would make the members identical")
-    b = _build(pde_system, alg, device)
+    with no_mesh():
+        b = _build(pde_system, alg, device)
     chain = alg.chain
 
     def member_init(gen):
@@ -594,7 +613,8 @@ def solve_pino_pde_ensemble(pde_system: PDESystem, alg: PINOPDE, *,
     prob = _SimpleProblem(b.total_loss, b.theta0, alg.matmul_precision)
     res = solve_ensemble(prob, alg.opt or adam(1e-3), maxiters=maxiters,
                          n_ensemble=n_ensemble, generator=generator,
-                         seed=seed, inner_steps=inner_steps, abstol=abstol,
+                         seed=seed, inner_steps=inner_steps, mesh=mesh,
+                         abstol=abstol,
                          verbose=verbose, callback=callback,
                          checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every,
@@ -613,10 +633,12 @@ def solve_pino_pde(pde_system: PDESystem, alg: PINOPDE, *,
                    profile_dir: str | None = None,
                    device=None) -> PINOPDESolution:
     """Train the operator on ``device`` (``"cuda"`` unless given);
-    ``generator``/``seed`` feed ``resample=True``'s draws."""
+    ``generator``/``seed`` feed ``resample=True``'s draws.  Under an active
+    mesh the family axis is sharded over the data axis when it divides and
+    no ``additional_loss`` is set (`parallel.mesh`)."""
     b = _build(pde_system, alg, device)
     res = train_solve(_SimpleProblem(b.total_loss, b.theta0,
-                                     alg.matmul_precision),
+                                     alg.matmul_precision, mesh_shares=True),
                       alg.opt or adam(1e-3), maxiters=maxiters,
                       abstol=abstol, verbose=verbose, generator=generator,
                       seed=seed, inner_steps=inner_steps, callback=callback,

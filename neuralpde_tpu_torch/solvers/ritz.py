@@ -35,6 +35,7 @@ from ..compile.discretize import (
 from ..compile.lower import (
     LoweringContext, build_residual_function, get_argument,
 )
+from ..parallel.mesh import share, shard_batch
 from ..strategies import GridTraining, StochasticTraining, generate_training_sets
 from ..symbolic.expr import Eq, Expr, Sym
 from ..symbolic.system import PDESystem, infimum, supremum
@@ -131,7 +132,8 @@ def discretize_ritz(pde_system: PDESystem, alg: DeepRitz) -> TrainingProblem:
 
             def term(theta, generator=None):
                 del generator
-                return volume * torch.mean(e_fn(nodes, theta))
+                return volume * share(torch.mean(e_fn(shard_batch(nodes),
+                                                      theta)))
         else:
             lo = [spans[a.name][0] if isinstance(a, Sym) else float(a)
                   for a in args]
@@ -143,7 +145,8 @@ def discretize_ritz(pde_system: PDESystem, alg: DeepRitz) -> TrainingProblem:
 
             def term(theta, generator):
                 pts = alg.strategy.sampler(n_pts, lb, ub, generator)
-                return volume * torch.mean(e_fn(pts, theta))
+                return volume * share(torch.mean(e_fn(shard_batch(pts),
+                                                      theta)))
 
         return term, e_fn
 

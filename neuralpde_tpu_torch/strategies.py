@@ -12,6 +12,12 @@ values on the host there and never inside a step.
 The random strategies draw their points through a ``sampler`` attribute,
 ``(n, lb, ub, generator) -> (dim, n)``, which tests replace to feed the
 JAX package and the port the same points.
+
+Under an active mesh (`parallel.mesh`) every loss draws the global batch
+and returns this rank's share of its value: `shard_batch` keeps the rank's
+slice of the points, and a term whose points do not divide over the data
+axis is computed whole and counted at 1/W.  The training step sums the
+shares.  Without a mesh the losses are computed as they were.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from torch.utils.checkpoint import checkpoint
 from .ops import sampling
 from .ops.quadrature import tensor_rule_box
 from .ops.sampling import uniform_random
+from .parallel.mesh import (
+    data_rank, data_size, share, shard_batch, sum_over_data,
+)
 from .symbolic.expr import Sym
 from .symbolic.system import infimum, supremum
 
@@ -46,6 +55,13 @@ def _wsum_sq(r, w, acc=None):
         sq = sq.to(acc)
         w = w.to(acc)
     return torch.sum(sq * w)
+
+
+def _msq_at(residual, pts, theta, acc=None):
+    """mean(r²) of ``residual`` at the points ``pts`` (dim, N); under a mesh
+    the rank's share of it: the mean over the rank's slice over W, which is
+    also the share of a term computed whole (module note)."""
+    return share(_msq(residual(shard_batch(pts), theta), acc))
 
 
 def julia_range(a: float, b: float, dx: float) -> np.ndarray:
@@ -134,7 +150,7 @@ class GridTraining(TrainingStrategy):
 def _mean_sq_loss(residual, train_set, acc=None):
     def loss(theta, generator=None):
         del generator
-        return _msq(residual(train_set, theta), acc)
+        return _msq_at(residual, train_set, theta, acc)
 
     return loss
 
@@ -146,7 +162,9 @@ class StochasticTraining(TrainingStrategy):
     under `torch.utils.checkpoint`, so only one chunk's activations are alive
     at a time and the backward pass recomputes them chunk by chunk.  Chunk
     ``c`` holds columns ``c*microbatch ... (c+1)*microbatch - 1`` of the
-    sample, as in the JAX package.  ``points`` must be a multiple of
+    sample, as in the JAX package (under a mesh, of the rank's slice of
+    it; the JAX package splits every chunk over the devices instead, and
+    the sums agree up to their order).  ``points`` must be a multiple of
     ``microbatch``.
 
     ``sampler``: the point source, ``(n, lb, ub, generator) -> (dim, n)``;
@@ -186,20 +204,25 @@ class StochasticTraining(TrainingStrategy):
 
                 def loss(theta, generator):
                     pts = self.sampler(n, lb, ub, generator)
-                    # a chunk draws no random numbers, so its CUDA RNG
-                    # state is not saved (as jax.checkpoint; saving it is
-                    # not allowed while a CUDA graph captures the step)
-                    sums = [checkpoint(chunk_sum, theta, pts[:, c:c + mb],
+                    # under a mesh each rank evaluates its slice of the
+                    # sample in chunks of ``microbatch`` points, so a rank
+                    # launches 1/W of the chunks, each at the full chunk
+                    # width; a chunk draws no random numbers, so its CUDA
+                    # RNG state is not saved (as jax.checkpoint; saving it
+                    # is not allowed while a CUDA graph captures the step)
+                    local = shard_batch(pts)
+                    sums = [checkpoint(chunk_sum, theta, local[:, c:c + mb],
                                        use_reentrant=False,
                                        preserve_rng_state=False)
-                            for c in range(0, n, mb)]
-                    return torch.sum(torch.stack(sums)) / n
+                            for c in range(0, local.shape[-1], mb)]
+                    total = torch.sum(torch.stack(sums)) / n
+                    return total if local is not pts else share(total)
 
                 return loss
 
             def loss(theta, generator):
-                return _msq(residual(self.sampler(n, lb, ub, generator), theta),
-                            acc)
+                return _msq_at(residual, self.sampler(n, lb, ub, generator),
+                               theta, acc)
 
             return loss
 
@@ -215,8 +238,8 @@ def _sampled_loss(residual, strategy, bound, n, acc):
     lb, ub = bound
 
     def loss(theta, generator):
-        return _msq(residual(strategy.sampler(n, lb, ub, generator), theta),
-                    acc)
+        return _msq_at(residual, strategy.sampler(n, lb, ub, generator),
+                       theta, acc)
 
     return loss
 
@@ -273,8 +296,8 @@ class QuasiRandomTraining(TrainingStrategy):
 
             if self.resampling:
                 def loss(theta, generator):
-                    return _msq(residual(sampler(n, lb, ub, generator), theta),
-                                acc)
+                    return _msq_at(residual, sampler(n, lb, ub, generator),
+                                   theta, acc)
 
                 return loss
             seeded = torch.Generator(device=device).manual_seed(0)
@@ -284,8 +307,8 @@ class QuasiRandomTraining(TrainingStrategy):
             def loss(theta, generator):
                 idx = torch.randint(0, self.minibatch, (1,),
                                     generator=generator, device=device)
-                return _msq(residual(torch.index_select(batch, 0, idx)[0],
-                                     theta), acc)
+                return _msq_at(residual, torch.index_select(batch, 0, idx)[0],
+                               theta, acc)
 
             return loss
 
@@ -411,7 +434,14 @@ class QuadratureTraining(TrainingStrategy):
 
             def loss(theta, generator=None):
                 del generator
-                return _wsum_sq(residual(nodes, theta), weights, acc)
+                # under a mesh, the rank's nodes and weights: its share of
+                # the sum (a rule that does not divide counts at 1/W)
+                local = shard_batch(nodes)
+                if local is nodes:
+                    return share(_wsum_sq(residual(nodes, theta), weights,
+                                          acc))
+                return _wsum_sq(residual(local, theta),
+                                shard_batch(weights[None])[0], acc)
 
             return loss
 
@@ -526,7 +556,7 @@ class ResidualAdaptiveTraining(TrainingStrategy):
                     w = torch.abs(residual(cand, theta)) ** self.k
                     w = w + self.c * torch.mean(w)
                     idx = self.categorical(w, self.points, generator)
-                return _msq(residual(cand[:, idx], theta), acc)
+                return _msq_at(residual, cand[:, idx], theta, acc)
 
             return loss
 
@@ -573,7 +603,10 @@ class CausalTraining(TrainingStrategy):
 
     def _slab_losses(self, residual, lb, ub, t_idx, acc):
         """Per-slab mean-square residuals L, shape (n_slabs,), from
-        slab-major stratified sampling."""
+        slab-major stratified sampling.  Under a mesh whose data axis
+        divides the slabs, each rank evaluates its slabs and returns its
+        share of L (its slabs' means, zeros elsewhere); otherwise every
+        rank evaluates all, at 1/W."""
         M, per = self.n_slabs, self.points // self.n_slabs
 
         def slabs(theta, generator):
@@ -586,15 +619,31 @@ class CausalTraining(TrainingStrategy):
                                 device=pts.device).repeat_interleave(per)
             t = lb[t_idx] + (slab + u) * span / M
             pts = torch.cat([pts[:t_idx], t[None], pts[t_idx + 1:]])
-            sq = residual(pts, theta) ** 2
-            if acc is not None:
-                sq = sq.to(acc)
-            return torch.mean(sq.reshape(-1, M, per), dim=(0, 2))
+            n = data_size()
+            if n == 1 or M % n != 0:
+                return share(self._slab_means(residual(pts, theta), M, per,
+                                              acc))
+            # the rank's columns are whole slabs: their means are exact, and
+            # no other rank holds them
+            m, r = M // n, data_rank()
+            own = self._slab_means(residual(shard_batch(pts), theta), m, per,
+                                   acc)
+            return torch.nn.functional.pad(own, (r * m, M - (r + 1) * m))
 
         return slabs
 
     @staticmethod
+    def _slab_means(r, m, per, acc):
+        sq = r ** 2
+        if acc is not None:
+            sq = sq.to(acc)
+        return torch.mean(sq.reshape(-1, m, per), dim=(0, 2))
+
+    @staticmethod
     def _weights(L, eps):
+        """The slab weights of the global slab losses (the shares summed
+        over the data axis under a mesh)."""
+        L = sum_over_data(L.detach())
         csum = torch.cumsum(L, dim=0) - L          # Σ_{j<i} L_j
         return torch.exp(-eps * csum).detach()
 

@@ -10,6 +10,13 @@ inside a block, and keeps the callback / abstol-stop protocol (reference
 semantics: src/ode_solve.jl:469-481) and logging at `log_frequency`
 (reference: src/discretize.jl:598-643) once per block.
 
+Under an active mesh (`parallel.mesh`) a problem whose losses return rank
+shares (``mesh_shares``: `discretize`'s and the PINO solvers') trains data
+parallel: after the backward pass the step sums the gradients, the loss and
+its aux over the data axis with one collective (one flat bucket a dtype),
+so that every rank reweights and steps from the global values.  A problem
+without shares computes everything on every rank, as without a mesh.
+
 On a CUDA problem `solve` is the counterpart of the JAX package's
 ``lax.scan`` under ``jit``: each kind of step (plain, and the one that
 reweights) runs once as it is, then is captured as one CUDA graph
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -34,6 +42,7 @@ import torch
 
 from .config import matmul_precision
 from .logging_utils import logscalar, logvector
+from .parallel.mesh import BATCH_AXIS, all_reduce_flat, get_mesh
 
 
 class Adam(torch.optim.Optimizer):
@@ -155,14 +164,36 @@ class TrainStep:
     """One training step; see `make_step`."""
 
     def __init__(self, loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
-                 bc_loss_fns=(), precision=None):
+                 bc_loss_fns=(), precision=None, mesh_shares=False):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.adaloss = adaloss
         self.pde_loss_fns = list(pde_loss_fns)
         self.bc_loss_fns = list(bc_loss_fns)
         self.precision = precision
+        self.mesh_shares = mesh_shares
         self.every = getattr(adaloss, "reweight_every", 0) if adaloss else 0
+
+    def _data_group(self):
+        """The data-axis group whose ranks' shares this step sums, or None
+        (no active mesh with a data axis, or a loss without shares)."""
+        mesh = get_mesh()
+        if (not self.mesh_shares or mesh is None
+                or BATCH_AXIS not in mesh.shape):
+            return None
+        return mesh.groups[BATCH_AXIS]
+
+    @staticmethod
+    def _sum_shares(group, theta, loss, aux):
+        """Sum the gradients (in place), the loss and aux over ``group``."""
+        params = [p for p in theta.values() if p.grad is not None]
+        keys = list(aux)
+        summed = all_reduce_flat([p.grad for p in params] + [loss]
+                                 + [aux[k] for k in keys], group)
+        for p, g in zip(params, summed):
+            p.grad.copy_(g)
+        rest = summed[len(params):]
+        return rest[0], dict(zip(keys, rest[1:]))
 
     @staticmethod
     def needs_closure(opt) -> bool:
@@ -192,21 +223,31 @@ class TrainStep:
         if self.needs_closure(opt):
             return self._run_closure(theta, opt, ada_state, generator, reweight)
         opt.zero_grad(set_to_none=True)
+        group = self._data_group()
         with matmul_precision(self.precision):
             loss, aux = self.loss_fn(theta, {"generator": generator,
                                              "adaptive": ada_state})
             loss.backward()
+            loss = loss.detach()
             aux = {k: v.detach() for k, v in aux.items()}
+            if group is not None:
+                loss, aux = self._sum_shares(group, theta, loss, aux)
             if reweight:
                 self._reweight(theta, ada_state, aux, generator)
         opt.step()
-        return loss.detach(), aux
+        return loss, aux
 
     def _reweight(self, theta, ada_state, aux, generator) -> None:
         comp = None
         if self.adaloss.needs_component_grads:
             comp = (_component_grads(self.pde_loss_fns, theta, generator),
                     _component_grads(self.bc_loss_fns, theta, generator))
+            group = self._data_group()
+            if group is not None:
+                flat = [g for grads in comp[0] + comp[1] for g in grads]
+                it = iter(all_reduce_flat(flat, group))
+                comp = tuple([[next(it) for _ in grads] for grads in part]
+                             for part in comp)
         new = self.adaloss.reweight(ada_state, theta, aux["pde_losses"],
                                     aux["bc_losses"], comp, generator)
         with torch.no_grad():
@@ -222,6 +263,7 @@ class TrainStep:
         weights = ({k: v.clone() for k, v in ada_state.items()} if reweight
                    else ada_state)
         first = []
+        group = self._data_group()
 
         def closure():
             if start is not None:
@@ -231,9 +273,12 @@ class TrainStep:
                 loss, aux = self.loss_fn(theta, {"generator": generator,
                                                  "adaptive": weights})
                 loss.backward()
+                loss = loss.detach()
+                aux = {k: v.detach() for k, v in aux.items()}
+                if group is not None:
+                    loss, aux = self._sum_shares(group, theta, loss, aux)
                 if not first:
-                    first.append((loss.detach(),
-                                  {k: v.detach() for k, v in aux.items()}))
+                    first.append((loss, aux))
                     if reweight:
                         self._reweight(theta, ada_state, first[0][1],
                                        generator)
@@ -252,7 +297,8 @@ class TrainStep:
 
 
 def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
-              bc_loss_fns=(), *, matmul_precision: str | None = None):
+              bc_loss_fns=(), *, matmul_precision: str | None = None,
+              mesh_shares: bool = False):
     """Build the train step.
 
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer`` (e.g.
@@ -262,9 +308,11 @@ def make_step(loss_fn, optimizer, adaloss=None, pde_loss_fns=(),
     generator is advanced by every step's sampling, in place of the JAX
     package's per-iteration key fold-in.  ``pde_loss_fns``/``bc_loss_fns``
     give the per-equation gradients of the schemes that need them.
+    ``mesh_shares``: the losses return rank shares under an active mesh
+    (module note), so the step sums them over the data axis.
     """
     return TrainStep(loss_fn, optimizer, adaloss, pde_loss_fns, bc_loss_fns,
-                     matmul_precision)
+                     matmul_precision, mesh_shares)
 
 
 _SIDE_STREAMS: dict = {}
@@ -390,8 +438,9 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     saved every ``checkpoint_every`` iterations and at the end, and a
     directory that holds a checkpoint is resumed from, so ``maxiters``
     counts iterations across restarts and a resumed run draws the points of
-    one that never stopped.  ``profile_dir`` writes a `torch.profiler`
-    trace of the run there.
+    one that never stopped.  Under a mesh of several ranks each rank keeps
+    its own ``rank<r>`` directory inside it.  ``profile_dir`` writes a
+    `torch.profiler` trace of the run there.
 
     ``quad_adapt``: an auto-refined `QuadratureTraining` rule met its
     tolerances on the initial-params integrand; after training,
@@ -428,13 +477,20 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
         generator = torch.Generator(device=device).manual_seed(seed)
 
     step = make_step(prob.loss, optimizer, adaloss, pde_fns, bc_fns,
-                     matmul_precision=precision)
+                     matmul_precision=precision,
+                     mesh_shares=getattr(prob, "mesh_shares", False))
     carry = step.init(prob.init_params, ada_state)
     theta, opt, ada_state, _ = carry
     it = 0
     if checkpoint_dir is not None:
         from .utils.checkpoint import has_checkpoint, restore_checkpoint
 
+        mesh = get_mesh()
+        if mesh is not None and mesh.size > 1:
+            # each rank its own directory: tensor-parallel ranks hold
+            # different slices, and no two ranks write one file
+            checkpoint_dir = os.path.join(checkpoint_dir,
+                                          f"rank{torch.distributed.get_rank()}")
         if has_checkpoint(checkpoint_dir):
             it = restore_checkpoint(checkpoint_dir, theta, opt, generator,
                                     ada_state)[2]

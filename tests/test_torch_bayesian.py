@@ -304,7 +304,7 @@ def test_sample_chains_stacks_independent_chains(kernel):
     assert not torch.equal(out[0], out[1])
     np.testing.assert_allclose(out[:, 100:].mean((0, 1)).numpy(),
                                [1.0, -2.0], atol=0.6)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         thmc.sample_chains(_gaussian(torch), torch.zeros((2, 2)),
                            mesh=object(), draw_samples=4)
 
@@ -350,7 +350,7 @@ def test_bnnode_multichain_and_errors():
     with pytest.raises(ValueError, match="Dataset is Required"):
         tpkg.ahmc_bayesian_pinn_ode(prob, tpkg.mlp([1, 4, 1]),
                                     param=[tpkg.Normal()], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpkg.ahmc_bayesian_pinn_ode(prob, tpkg.mlp([1, 4, 1]), mesh=object(),
                                     device="cpu")
 
@@ -592,15 +592,15 @@ def test_bpinn_pde_with_nuts_kernel():
 
 
 def test_bpinn_pde_chains_and_mesh():
-    """Two chains of the same problem, one solution each; ``mesh`` raises
-    on one card."""
+    """Two chains of the same problem, one solution each; a ``mesh`` that
+    is not a `parallel.mesh.Mesh` raises."""
     system, disc = _decay_1d_system(tpkg), _decay_1d_disc()
     sols = tpkg.ahmc_bayesian_pinn_pde(
         system, disc, draw_samples=40, bcstd=[0.02], phystd=[0.05],
         saveats=[0.05], nchains=2, n_leapfrog=5)
     assert len(sols) == 2 and sols[0].original.samples.shape[0] == 40
     assert not torch.equal(sols[0].original.samples, sols[1].original.samples)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpkg.ahmc_bayesian_pinn_pde(system, disc, mesh=object(),
                                     saveats=[0.05])
 
