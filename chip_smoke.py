@@ -14,9 +14,10 @@ accuracy recipes, matrix-free Gauss-Newton, the integro-differential path
 the ODE/DAE solver surface, the trial-function zoo (FBPINN, KAN, DGM,
 a wrapped `torch.nn.Module`) with the variational formulations (hp-VPINN
 `WeakTraining`, Deep Ritz), the stochastic layer (SDE solvers, HMC/NUTS,
-the Bayesian PINNs) and the operator layer (DeepONet, FNO, PINOODE,
-PINOPDE, ensembles), in phases that each print their own lines, their
-seconds and the memory left allocated, and raise on failure:
+the Bayesian PINNs), the operator layer (DeepONet, FNO, PINOODE,
+PINOPDE, ensembles), scale-out and export, and the example programs of
+`neuralpde_tpu_torch/examples/`, in phases that each print their own
+lines, their seconds and the memory left allocated, and raise on failure:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
 2. build: the kernel library from `neuralpde_tpu_torch/csrc/` with nvcc;
@@ -134,22 +135,37 @@ seconds and the memory left allocated, and raise on failure:
     `export_phi`, saved and loaded in a fresh process that imports only
     torch, at 2^20 points against phi; the NS operator of phase 29's width
     through `export_pino_pde` against ``sol()``; us a call of each,
-    exported against eager.
+    exported against eager;
+33. Beltrami (`neuralpde_tpu_torch/examples/beltrami_spinn.py`): card
+    against CPU at the tests' size (causal eps 1 and 30), then the
+    (3+1)-D Navier-Stokes SPINN on the full 65^4 grid at rank 64 (four
+    fields of four axis nets of width 64, 22 conditions), float32 with TF32
+    off, 300 steps of the eps = 1 stage through `solve`'s captured graph
+    (ms a step, grid points a second, peak GiB, rel L2), and a profile of
+    replays (idle share, top device operations);
+34. the other example programs the port had never run: card against CPU
+    for the Helmholtz, Taylor-Green SPINN, dense Taylor-Green,
+    Kuramoto-Sivashinsky and Burgers PINO systems at a small size; then
+    `examples/helmholtz3d_spinn.py` at its 2,000 steps (rel L2 bound),
+    the Taylor-Green SPINN on 128^3 and the dense Taylor-Green net at
+    width 128 for part of their first stage, and Kuramoto-Sivashinsky
+    through Adam and L-BFGS (rel L2 bound).
 
-Phases 9, 11 to 19, 21 to 23 and 28 to 30 train through `solve`, which on the card runs each
-kind of step once as it is, then captures it as a CUDA graph and replays
-it: a counter sees the eager step and the capture, not the replays.  So
-the JSON line of kernels sums the launches of the eager paths (phases 5, 6,
-8 and 20), of phases 18 and 21 to 23, of phase 26's jet sampler (whose
-draws replay a captured graph too) and of phase 31's solve under the mesh,
-which set the counts to 0 just
-before each of their solves or samplers, read them just after and require the forward
-and backward kernels in them (the eager step and the capture) wherever the
-path takes second derivatives by Taylor mode; every other graph phase, like
-phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart; phases 27 to
-30 and 32 print theirs, which must be 0.  The last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Without a CUDA device it exits non-zero and prints no result.
+Phases 9, 11 to 19, 21 to 23, 28 to 31, 33 and 34 train through `solve`,
+which on the card runs each kind of step once as it is, then captures it as
+a CUDA graph and replays it: a counter sees the eager step and the capture,
+not the replays. So the JSON line of kernels sums the launches of the eager
+paths (phases 5, 6, 8 and 20), of phases 18 and 21 to 23, of phase 26's jet
+sampler (whose draws replay a captured graph too), of phase 31's solve
+under the mesh and of the example programs' solves in phases 33 and 34,
+which set the counts to 0 just before each of their solves or samplers,
+read them just after and require the forward and backward kernels in them
+(the eager step and the capture) wherever the path takes second derivatives
+by Taylor mode; every other graph phase, like phase 10 (Gauss-Newton's LSQR
+graph), prints its own counts apart; phases 27 to 30 and 32 print theirs,
+which must be 0. The last line is ``{"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}``. Without a CUDA device it exits
+non-zero and prints no result.
 
 Cuts against the recipes, each named where its phase prints: phase 11 runs
 1000 of the separable stage's 15,000 steps, phase 13 10,000 of the dense
@@ -157,7 +173,9 @@ stage's 333,000, phase 21's Laplace problem the steps that 20 s allow of
 30,000, phase 23's Burgers example 1,500 of 5,000; phase 27's Navier-Stokes
 check trains no step and takes 2 of the 12 family members; phase 32's NS
 operator trains 25 of 8,000 steps (its export is measured, not its
-training), and phase 31's multi-card run (two cards or more) 60 steps.
+training), phase 31's multi-card run (two cards or more) 60 steps, phase
+33's Beltrami SPINN 300 of its recipe's 3 x 20,000, and phase 34's
+Taylor-Green runs 1,000 (separable) and 2,000 (dense) of 2 x 20,000.
 """
 
 from __future__ import annotations
@@ -205,7 +223,14 @@ CHECK_SHAPES = (KERNEL_SHAPE,
                 # Poisson batch, card-vs-CPU
                 (2, 8_192), (8, 8_192), (2, 1_024), (8, 1_024),
                 (HIDDEN, 9_216),     # the weak grid, 96^2 nodes
-                (16, 66))            # Gauss-Newton on ibp=0 rows: 6 x 11 nodes
+                (16, 66),            # Gauss-Newton on ibp=0 rows: 6 x 11 nodes
+                # the example programs (phases 33-34): Beltrami's x, y, z
+                # axes on 65 nodes, Helmholtz and Taylor-Green SPINN on 128,
+                # the dense Taylor-Green net at width 128, KS on 51 x 11
+                (HIDDEN, 65), (HIDDEN, 128), (128, 8_192), (32, 561),
+                # their card-vs-CPU checks: hidden 8 on 2 (the probe) to 6
+                # nodes an axis, the dense Taylor-Green net on 64 points
+                (8, 2), (8, 4), (8, 5), (8, 6), (8, 64))
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
        torch.float64: dict(rtol=1e-12, atol=1e-12)}
 CARD_VS_CPU_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
@@ -234,7 +259,8 @@ ADAPTIVE_STEPS = 300
 ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31)   # summed in the kernels line
+# summed in the kernels line
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34)
 INTEGRAL_ORDER = 20         # nodes of each point's integral (phase 18)
 IDE_BATCH = 8_192
 IDE_STEPS = 3_000
@@ -498,37 +524,42 @@ def _loss_and_grad_norm(prob) -> tuple[float, float]:
     return float(loss.detach()), norm
 
 
-def phase_card_vs_cpu() -> None:
-    from neuralpde_tpu_torch.ops.sampling import uniform_random
-
-    points = torch.Generator()
-
-    def sampler(n, lb, ub, generator):
-        """The same points for both runs, drawn on the CPU."""
-        return uniform_random(n, lb.cpu(), ub.cpu(), points).to(lb.device)
-
-    results = {}
-    init = None
+def _card_vs_cpu_problem(what: str, build, tag: str) -> None:
+    """Loss and gradient norm of ``build(device, init_params)`` on the CPU
+    and on the card, from the CPU problem's initial parameters."""
+    results, init = {}, None
     for device in ("cpu", "cuda"):
-        points.manual_seed(1)
-        prob = bench_problem(CHECK_BATCH, CHECK_MICROBATCH, device,
-                             init_params=init, sampler=sampler,
-                             matmul_precision="highest")
+        prob = build(device, init)
         init = {k[len("depvar."):]: v.cpu()
                 for k, v in prob.init_params.items()}
         results[device] = _loss_and_grad_norm(prob)
         torch.cuda.synchronize()
-    (cpu_loss, cpu_norm), (gpu_loss, gpu_norm) = results["cpu"], results["cuda"]
-    d_loss = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    d_norm = abs(gpu_norm - cpu_norm) / abs(cpu_norm)
-    print(f"[card-vs-cpu] batch {CHECK_BATCH} microbatch {CHECK_MICROBATCH} "
-          f"f32 highest: loss {gpu_loss:.9g} vs {cpu_loss:.9g} (rel "
-          f"{d_loss:.2e}), grad norm {gpu_norm:.9g} vs {cpu_norm:.9g} (rel "
-          f"{d_norm:.2e}); limits {CARD_VS_CPU_RTOL}")
-    if not all(map(math.isfinite, (gpu_loss, gpu_norm, cpu_loss, cpu_norm))):
-        raise AssertionError("card-vs-cpu: non-finite loss or gradient")
-    if d_loss > CARD_VS_CPU_RTOL["loss"] or d_norm > CARD_VS_CPU_RTOL["grad_norm"]:
-        raise AssertionError("card-vs-cpu: the card disagrees with the CPU")
+    _card_vs_cpu_line(what, results["cpu"], results["cuda"], tag=tag)
+
+
+def _cpu_points_sampler(points: torch.Generator):
+    """A sampler drawing uniform points from ``points`` on the CPU, so that
+    the card and the CPU train on the same points."""
+    from neuralpde_tpu_torch.ops.sampling import uniform_random
+
+    def sampler(n, lb, ub, generator):
+        return uniform_random(n, lb.cpu(), ub.cpu(), points).to(lb.device)
+
+    return sampler
+
+
+def phase_card_vs_cpu() -> None:
+    points = torch.Generator()
+
+    def build(device, init):
+        points.manual_seed(1)
+        return bench_problem(CHECK_BATCH, CHECK_MICROBATCH, device,
+                             init_params=init,
+                             sampler=_cpu_points_sampler(points),
+                             matmul_precision="highest")
+
+    _card_vs_cpu_problem(f"batch {CHECK_BATCH} microbatch {CHECK_MICROBATCH}"
+                         " f32 highest", build, "card-vs-cpu")
 
 
 def phase_main_path(card: str) -> dict:
@@ -667,26 +698,12 @@ def phase_transforms(card: str) -> dict:
 def phase_separable_card_vs_cpu() -> None:
     from neuralpde_tpu_torch.accuracy import poisson_spinn
 
-    results, init = {}, None
-    for device in ("cpu", "cuda"):
-        prob, _ = poisson_spinn(SPINN_CHECK_N, HIDDEN, SPINN_RANK,
-                                device=device, init_params=init,
-                                matmul_precision="highest")
-        init = {k[len("depvar."):]: v.cpu()
-                for k, v in prob.init_params.items()}
-        results[device] = _loss_and_grad_norm(prob)
-        torch.cuda.synchronize()
-    (cpu_loss, cpu_norm), (gpu_loss, gpu_norm) = results["cpu"], results["cuda"]
-    d_loss = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    d_norm = abs(gpu_norm - cpu_norm) / abs(cpu_norm)
-    print(f"[separable-card-vs-cpu] {SPINN_CHECK_N}^2 grid rank {SPINN_RANK} "
-          f"f32 highest: loss {gpu_loss:.9g} vs {cpu_loss:.9g} (rel "
-          f"{d_loss:.2e}), grad norm {gpu_norm:.9g} vs {cpu_norm:.9g} (rel "
-          f"{d_norm:.2e}); limits {CARD_VS_CPU_RTOL}")
-    if not all(map(math.isfinite, (gpu_loss, gpu_norm, cpu_loss, cpu_norm))):
-        raise AssertionError("separable card-vs-cpu: non-finite values")
-    if d_loss > CARD_VS_CPU_RTOL["loss"] or d_norm > CARD_VS_CPU_RTOL["grad_norm"]:
-        raise AssertionError("separable card-vs-cpu: the card disagrees")
+    _card_vs_cpu_problem(
+        f"{SPINN_CHECK_N}^2 grid rank {SPINN_RANK} f32 highest",
+        lambda device, init: poisson_spinn(
+            SPINN_CHECK_N, HIDDEN, SPINN_RANK, device=device,
+            init_params=init, matmul_precision="highest")[0],
+        "separable-card-vs-cpu")
 
 
 def phase_separable_main(card: str) -> dict:
@@ -1926,49 +1943,17 @@ def phase_zoo_solvers(card: str) -> dict:
 
 # --- the stochastic layer (phases 24-26) -----------------------------------
 
-def _gbm_sde(pkg):
-    """tests/test_sde.py's and examples/gbm_sde.py's GBM: du = 1.2 u dt +
-    0.2 u dW, u(0) = 1, E[u(t)] = exp(1.2 t)."""
-    return pkg.SDEProblem(f=lambda u, p, t: 1.2 * u,
-                          g=lambda u, p, t: 0.2 * u, u0=1.0, tspan=(0.0, 1.0))
-
-
 def _lotka_volterra_bnnode(npde, draws: int, n_leapfrog: int):
     """tests/test_bayesian.py:116-156: the four-parameter Lotka-Volterra
-    inverse problem (RK4 data with 1% noise, `estim_collocate`)."""
-    p_true = np.array([1.5, 1.0, 3.0, 1.0])
+    inverse problem of examples/lotka_volterra_bpinn.py (RK4 data with 1%
+    noise, `estim_collocate`) with the test's sigmoid net and 400
+    ensemble draws."""
+    from neuralpde_tpu_torch.examples import lotka_volterra_bpinn as lv
 
-    def fnp(u, p):
-        return np.array([p[0] * u[0] - p[1] * u[0] * u[1],
-                         -p[2] * u[1] + p[3] * u[0] * u[1]])
-
-    def f(u, p, t):
-        return torch.stack([p[0] * u[0] - p[1] * u[0] * u[1],
-                            -p[2] * u[1] + p[3] * u[0] * u[1]])
-
-    ts = np.linspace(0, 2.0, 80)
-    us = [np.array([1.0, 1.0])]
-    for i in range(len(ts) - 1):
-        h, u_ = ts[i + 1] - ts[i], us[-1]
-        k1 = fnp(u_, p_true)
-        k2 = fnp(u_ + h / 2 * k1, p_true)
-        k3 = fnp(u_ + h / 2 * k2, p_true)
-        k4 = fnp(u_ + h * k3, p_true)
-        us.append(u_ + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4))
-    traj = np.stack(us)
-    noisy = traj + 0.01 * traj.std(0) * np.random.default_rng(0).standard_normal(
-        traj.shape)
-    prob = npde.ODEProblem(f=f, u0=np.array([1.0, 1.0]), tspan=(0.0, 2.0),
-                           p=np.array([1.0, 1.0, 2.0, 1.0]))
-    alg = npde.BNNODE(
-        npde.mlp([1, 16, 16, 2], activation=torch.sigmoid),
-        dataset=[noisy[:, 0], noisy[:, 1], ts, np.full_like(ts, ts[1] - ts[0])],
-        draw_samples=draws, l2std=(0.02, 0.02), phystd=(0.05, 0.05),
-        priorsNNw=(0.0, 3.0),
-        param=(npde.Normal(2.0, 1.0), npde.Normal(1.5, 1.0),
-               npde.Normal(2.5, 1.0), npde.Normal(1.5, 1.0)),
-        estim_collocate=True, n_leapfrog=n_leapfrog, numensemble=400)
-    return prob, alg, p_true
+    alg = lv.make_alg(draws, n_leapfrog,
+                      chain=npde.mlp([1, 16, 16, 2], activation=torch.sigmoid),
+                      numensemble=400)
+    return lv.lotka_volterra_problem(), alg, lv.P_TRUE
 
 
 def _bpinn_poisson(npde, width: int, dx: float, activation, derivative,
@@ -2015,12 +2000,13 @@ def phase_stochastic_card_vs_cpu(card: str) -> None:
     from neuralpde_tpu_torch.bayesian import hmc
     from neuralpde_tpu_torch.bayesian.pde import PDELogTargetDensity
     from neuralpde_tpu_torch.solvers import sde
+    from neuralpde_tpu_torch.examples.gbm_sde import gbm_problem
 
     net = npde.mlp([4, 16, 16, 1], activation=torch.sigmoid)
     net.reset_parameters(torch.Generator().manual_seed(3))
     params = {f"depvar.{k}": v.detach().clone()
               for k, v in net.named_parameters()}
-    prob = _gbm_sde(npde)
+    prob = gbm_problem()
     g = torch.Generator().manual_seed(4)
     ts = torch.linspace(0, 1, 51)
     for strong, mk in ((False, sde.add_rand_coeff),
@@ -2122,12 +2108,13 @@ def _sol_seconds(fn):
 def phase_sde(card: str) -> None:
     """The SDE solvers at the JAX tests' sizes and bounds."""
     import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.examples.gbm_sde import gbm_problem
 
     sig = torch.sigmoid
     alg = npde.NNSDE(npde.mlp([4, 16, 16, 1], activation=sig), npde.adam(2e-2),
                      sub_batch=8, numensemble=50)
     sol, s, peak = _sol_seconds(lambda: npde.solve_sde(
-        _gbm_sde(npde), alg, dt=1 / 50, maxiters=2000, inner_steps=25))
+        gbm_problem(), alg, dt=1 / 50, maxiters=2000, inner_steps=25))
     ts = np.asarray(sol.timepoints)
     mean = np.asarray([float(p.mean) for p in sol.estimated_sol[0]])
     rel = float(np.mean(np.abs(mean - np.exp(1.2 * ts)) / np.exp(1.2 * ts)))
@@ -2397,27 +2384,6 @@ def _on(tree, device):
     return {k: _on(v, device) for k, v in tree.items()}
 
 
-def _ns_alg(npde, *, width=16, modes=(8, 8, 4), depth=3, nodes=NS_NODES,
-            members=12, **kw):
-    """The NS vorticity operator of scripts/measure_ns_operator_tpu.py's
-    base-fd row (the phase-27 check cuts the family to 2 members)."""
-    from neuralpde_tpu_torch import accuracy
-
-    system, w0 = accuracy.ns_vorticity_system()
-    x, y = system.ivs[0], system.ivs[1]
-    if kw.pop("spectral", False):
-        kw["spectral_axes"] = (x, y)
-    kw.setdefault("additional_loss", accuracy.ns_gauge)
-    alg = npde.PINOPDE(
-        chain=npde.FNO3D(1, width=width, modes=modes, depth=depth,
-                         out_channels=2),
-        opt=npde.adam(2e-3), number_of_parameters=members,
-        input_functions={w0: accuracy.zero_mean_grf()},
-        strategy=npde.GridTraining([1 / (nodes - 1), 1 / (nodes - 1),
-                                    accuracy.NS["tmax"] / 8]), **kw)
-    return system, alg
-
-
 def phase_operators_card_vs_cpu(card: str) -> dict:
     """The operator layer on the card against the CPU, from the same
     parameters and inputs (made once on the CPU): the spectral layers at
@@ -2426,6 +2392,9 @@ def phase_operators_card_vs_cpu(card: str) -> dict:
     the NS PINOPDE loss (FD, spectral x/y, causal), and a jvp and a vjp of
     the NS residual vector."""
     import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.examples.ns_vorticity_pino import (
+        make_alg as ns_alg,
+    )
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     from neuralpde_tpu_torch.solvers import pino, pino_pde
 
@@ -2491,7 +2460,7 @@ def phase_operators_card_vs_cpu(card: str) -> dict:
     for what, kw in [("PINOPDE NS 33^2x9, 2 members, FD", {}),
                      ("PINOPDE NS, spectral_axes=(x, y)", {"spectral": True}),
                      ("PINOPDE NS, causal_eps=1", {"causal_eps": 1.0})]:
-        system, alg = _ns_alg(npde, members=2, **kw)
+        system, alg = ns_alg(members=2, **kw)
         built = [pino_pde._build(system, alg, d) for d in ("cpu", "cuda")]
         theta0 = built[0].theta0
         vals = [_flat_value_grad(lambda th, b=b: b.total_loss(th, None),
@@ -2499,7 +2468,7 @@ def phase_operators_card_vs_cpu(card: str) -> dict:
         _card_vs_cpu_line(what, *vals, tag="operators-card-vs-cpu")
 
     # Gauss-Newton takes no additional loss: the residual rows alone
-    system, alg = _ns_alg(npde, members=2, additional_loss=None)
+    system, alg = ns_alg(members=2, additional_loss=None)
     out = []
     for d in ("cpu", "cuda"):
         r_fn, theta0, _ = npde.build_pino_pde_residual_vector(system, alg,
@@ -2682,13 +2651,16 @@ def phase_pino_pde(card: str) -> dict:
     import neuralpde_tpu_torch as npde
     from neuralpde_tpu_torch import accuracy
     from neuralpde_tpu_torch.compile.lower import depvar_params
+    from neuralpde_tpu_torch.examples.ns_vorticity_pino import (
+        make_alg as ns_alg,
+    )
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     from neuralpde_tpu_torch.solvers import pino_pde
     from neuralpde_tpu_torch.solvers.ode import _SimpleProblem
 
     tj.reset_launch_counts()
     torch.backends.cuda.matmul.allow_tf32 = False
-    system, alg = _ns_alg(npde)
+    system, alg = ns_alg()
     stamps = []
 
     def stamp(it, loss, aux):
@@ -3227,6 +3199,9 @@ def phase_export(card: str) -> dict:
     card against phi; export of the NS vorticity operator of phase 29's
     width against ``sol()``; us a call, exported against eager."""
     import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.examples.ns_vorticity_pino import (
+        make_alg as ns_alg,
+    )
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     from neuralpde_tpu_torch.utils.export import export_phi, save_exported
 
@@ -3264,7 +3239,7 @@ def phase_export(card: str) -> dict:
             want = phi(cord, params)
         us_exported = 1e3 * _event_ms(lambda: call(cord), 20)
         us_eager = 1e3 * _event_ms(lambda: phi(cord, params), 20)
-        system, alg = _ns_alg(npde)
+        system, alg = ns_alg()
         sol = npde.solve_pino_pde(system, alg, maxiters=25, inner_steps=25,
                                   abstol=0.0)
         ns = _export_ns(sol)
@@ -3318,6 +3293,220 @@ def _export_ns(sol) -> dict:
         f"exported against {us_eager:.1f} us eager")}
 
 
+# --- the example programs (phases 33-34) -----------------------------------
+
+BELTRAMI_NODES = 65         # examples/beltrami_spinn.py: 65^4 grid, rank 64
+BELTRAMI_RANK = 64
+BELTRAMI_STEPS = 300        # of the eps = 1 stage's 20,000
+BELTRAMI_BLOCK = 25
+BELTRAMI_PROFILE_STEPS = 3
+# the tests' size (tests/test_torch_examples.py) for the card-vs-CPU checks
+SMALL_SEPARABLE = dict(rank=4, hidden=8)
+HELMHOLTZ_LIMIT = 1e-2      # twice the JAX example's 5.2e-3 (TPU v5e, default
+                            # precision; 3.7e-3 at "highest")
+HELMHOLTZ_JAX = (5.2e-3, 3.7e-3)
+TG_SPINN_STEPS = 1_000      # of the example's 2 x 20,000
+TG_SPINN_BLOCK = 250
+TG_DENSE_STEPS = 2_000      # of examples/taylor_green_ns.py's 2 x 20,000
+TG_DENSE_BLOCK = 250
+# examples/kuramoto_sivashinsky.py run by the JAX package on a CPU prints
+# "relative L2 0.002" (1.968533e-03 unrounded; the port's run on a CPU:
+# 6.950e-04)
+KS_LIMIT = 2e-3
+
+
+def phase_beltrami(card: str) -> dict:
+    """examples/beltrami_spinn.py: card against CPU at the tests' size, then
+    the 65^4 grid at rank 64 through `solve`'s captured graph for
+    BELTRAMI_STEPS of the eps = 1 stage, with a profile of replays."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.examples import beltrami_spinn as ex
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
+
+    print(f"[beltrami] torch.backends.opt_einsum.is_available() = "
+          f"{torch.backends.opt_einsum.is_available()} (the contraction "
+          f"order of the four-operand einsum follows it)")
+    for eps in (1.0, 30.0):
+        _card_vs_cpu_problem(
+            f"Beltrami (5,4,4,3) nodes rank 4 hidden 8, 4 equations, 22 "
+            f"conditions, causal eps {eps}, f32 highest",
+            lambda device, init, eps=eps: ex.make_problem(
+                ex.make_nets(dtype=torch.float32, **SMALL_SEPARABLE), eps,
+                nodes=(5, 4, 4, 3), device=device, init_params=init),
+            "beltrami-card-vs-cpu")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nets = ex.make_nets(BELTRAMI_RANK)
+    prob = ex.make_problem(nets, ex.DEFAULT_STAGES[0][0],
+                           nodes=BELTRAMI_NODES)
+    lr = ex.DEFAULT_STAGES[0][1]
+    res, seconds, ms, counts, peak = _timed_solve(
+        prob, npde.adam(lr), BELTRAMI_STEPS, BELTRAMI_BLOCK)
+    points = BELTRAMI_NODES ** 4
+    rel = ex.rel_l2_velocities(nets, res.u)
+    with torch.no_grad():
+        w = [float(c[-1]) for c in prob.pinnrep.strategy.causal_weights(res.u)]
+    print(f"[beltrami] examples/beltrami_spinn.py: {BELTRAMI_NODES}^4 = "
+          f"{points} grid points, rank {BELTRAMI_RANK}, 4 x 4 mlp([1,64,64,"
+          f"{BELTRAMI_RANK}]), causal eps 1, Adam({lr}) f32, TF32 off, "
+          f"solve(inner_steps={BELTRAMI_BLOCK}), {BELTRAMI_STEPS} of the "
+          f"stage's 20,000 steps: {seconds:.2f} s; {ms:.3f} ms/step replayed, "
+          f"{points * 1e3 / ms:.6g} grid points/s; peak {peak:.2f} GiB; loss "
+          f"{res.history[0]:.5g} -> {res.objective:.5g} (per block "
+          f"{[round(v, 4) for v in res.history]}); last causal weight per "
+          f"equation {[round(v, 4) for v in w]}; rel L2(u,v,w) {rel:.4f} "
+          f"(the recipe's eps=1 stage ends at 0.0265 in the JAX package on a "
+          f"TPU v5e after 20,000 steps); {_require_graph('beltrami', res)}; "
+          f"launches counted (eager step and capture) {counts}; {card}")
+    _require_falling("beltrami", res.history)
+    _require_counts("beltrami", counts, True)
+
+    rep = prob.pinnrep
+    lf = rep.loss_functions
+    step = npde.make_step(prob.loss, npde.adam(lr), rep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions,
+                          matmul_precision=rep.matmul_precision)
+    carry = step.init(res.u, rep.adaloss.init_state(
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
+        "cuda"))
+    runner = GraphedSteps(step, carry,
+                          torch.Generator(device="cuda").manual_seed(0))
+    with _side_stream(next(iter(runner.theta.values()))):
+        for i in range(2):      # the eager step, then the capture
+            runner(i)
+    _profile_block(runner, 2, BELTRAMI_PROFILE_STEPS, ms / 1e3)
+    del runner, step, carry
+    return counts
+
+
+def phase_examples(card: str) -> dict:
+    """examples/helmholtz3d_spinn.py at its 2,000 steps, held to
+    HELMHOLTZ_LIMIT; examples/taylor_green_spinn.py at 128^3 for
+    TG_SPINN_STEPS; examples/taylor_green_ns.py for TG_DENSE_STEPS;
+    examples/kuramoto_sivashinsky.py through Adam and
+    L-BFGS, held to KS_LIMIT; each new system (and the dense Taylor-Green
+    net, and the Burgers PINO family) card against CPU at a small size."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.examples import burgers_pino, helmholtz3d_spinn
+    from neuralpde_tpu_torch.examples import kuramoto_sivashinsky as ks
+    from neuralpde_tpu_torch.examples import taylor_green_ns
+    from neuralpde_tpu_torch.examples import taylor_green_spinn as tgs
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+    from neuralpde_tpu_torch.solvers import pino_pde
+
+    tag = "examples-card-vs-cpu"
+    _card_vs_cpu_problem(
+        "Helmholtz (6,5,4) nodes rank 4 hidden 8, Transformed on every "
+        "axis, f32", lambda device, init: helmholtz3d_spinn.build_problem(
+            (6, 5, 4), device=device, init_params=init,
+            **SMALL_SEPARABLE)[0], tag)
+    _card_vs_cpu_problem(
+        "Taylor-Green SPINN (6,5,4) nodes rank 4 hidden 8, causal eps 3, "
+        "f32", lambda device, init: tgs.make_problem(
+            tgs.make_nets(**SMALL_SEPARABLE), 3.0, nodes=(6, 5, 4),
+            device=device, init_params=init), tag)
+    points = torch.Generator()
+
+    def tg_dense(device, init):
+        points.manual_seed(5)
+        prob, strategy = taylor_green_ns.make_problem(
+            1.0, points=64, bcs_points=16, n_slabs=4, hidden=8,
+            device=device, init_params=init)
+        strategy.sampler = _cpu_points_sampler(points)
+        return prob
+
+    _card_vs_cpu_problem("Taylor-Green dense, two chained periodic "
+                         "embeddings, CausalTraining(64, 4 slabs) hidden 8, "
+                         "jet, f32", tg_dense, tag)
+    _card_vs_cpu_problem("Kuramoto-Sivashinsky mlp([2,32,32,1]) on 51 x 11 "
+                         "nodes, jet to order 4, f32",
+                         lambda device, init: ks.make_problem(
+                             device=device, init_params=init), tag)
+    built = [pino_pde._build(
+        burgers_pino.build_system(), burgers_pino.make_alg(
+            width=8, modes=(4, 3), depth=2, members=3, dx=(1 / 16, 1 / 8)),
+        d) for d in ("cpu", "cuda")]
+    _card_vs_cpu_line(
+        "Burgers PINOPDE family FNO2D w8 m(4,3) d2, 3 members, 17 x 9 grid",
+        *[_flat_value_grad(lambda th, b=b: b.total_loss(th, None),
+                           _on(built[0].theta0, b.device)) for b in built],
+        tag=tag)
+
+    total: dict = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tj.reset_launch_counts()
+    out = helmholtz3d_spinn.run(verbose=False)
+    torch.cuda.synchronize()
+    counts = tj.launch_counts()
+    _add(total, counts)
+    print(f"[examples] examples/helmholtz3d_spinn.py: "
+          f"{helmholtz3d_spinn.N_GRID}^3 grid rank {helmholtz3d_spinn.RANK}, "
+          f"Adam({helmholtz3d_spinn.LR}) f32, "
+          f"{helmholtz3d_spinn.ITERS} steps in {out['wall_s']:.3f} s "
+          f"({1e3 * out['wall_s'] / helmholtz3d_spinn.ITERS:.3f} ms/step over "
+          f"the solve, {out['points_per_s']:.6g} points/s); loss "
+          f"{out['loss']:.4e}; rel L2 {out['rel_l2']:.4e} (limit "
+          f"{HELMHOLTZ_LIMIT}; the JAX example on a TPU v5e "
+          f"{HELMHOLTZ_JAX[0]} at default precision, {HELMHOLTZ_JAX[1]} at "
+          f"highest); launches counted (warm-up and timed solves, eager "
+          f"steps and captures) {counts}; {card}")
+    _require_counts("helmholtz", counts, True)
+    if not out["rel_l2"] < HELMHOLTZ_LIMIT:
+        raise AssertionError(f"helmholtz: rel L2 {out['rel_l2']}")
+
+    nets = tgs.make_nets()
+    prob = tgs.make_problem(nets, tgs.STAGES[0][0])
+    res, seconds, ms, counts, peak = _timed_solve(
+        prob, npde.adam(tgs.STAGES[0][1]), TG_SPINN_STEPS, TG_SPINN_BLOCK)
+    _add(total, counts)
+    print(f"[examples] examples/taylor_green_spinn.py: 128^3 grid, 3 fields "
+          f"rank {tgs.RANK}, periodic x and y axis nets, causal eps "
+          f"{tgs.STAGES[0][0]}, Adam f32, {TG_SPINN_STEPS} of the recipe's "
+          f"40,000 steps: {seconds:.2f} s, {ms:.3f} ms/step replayed, "
+          f"{128 ** 3 * 1e3 / ms:.6g} grid points/s; peak {peak:.2f} GiB; "
+          f"loss per block {[round(v, 5) for v in res.history]}; rel L2(u,v) "
+          f"{tgs.rel_l2_uv(nets, res.u):.4f}; {_require_graph('tg', res)}; "
+          f"launches counted {counts}; {card}")
+    _require_falling("taylor-green spinn", res.history)
+    _require_counts("taylor-green spinn", counts, True)
+
+    prob, _ = taylor_green_ns.make_problem(taylor_green_ns.STAGES[0][0])
+    loss0 = _loss_and_grad_norm(prob)[0]     # on points of the global RNG
+    res, seconds, ms, counts, peak = _timed_solve(
+        prob, npde.adam(taylor_green_ns.STAGES[0][1]), TG_DENSE_STEPS,
+        TG_DENSE_BLOCK)
+    _add(total, counts)
+    print(f"[examples] examples/taylor_green_ns.py: 3 x (two chained "
+          f"periodic embeddings, mlp([25,128,128,128,1])), CausalTraining("
+          f"8192, bcs_points=1024, n_slabs=16), causal eps 1, jet, Adam f32, "
+          f"{TG_DENSE_STEPS} of the recipe's 40,000 steps: {seconds:.2f} s, "
+          f"{ms:.3f} ms/step replayed; peak {peak:.2f} GiB; loss {loss0:.5g} "
+          f"at the start, per block {[round(v, 5) for v in res.history]} "
+          f"(each block's last step, on its own points); rel L2(u,v) "
+          f"{taylor_green_ns.rel_l2_uv(prob, res.u):.4f}; "
+          f"{_require_graph('tg dense', res)}; launches counted {counts}; "
+          f"{card}")
+    _require_falling("taylor-green dense", [loss0] + res.history)
+    _require_counts("taylor-green dense", counts, True)
+
+    tj.reset_launch_counts()
+    out = ks.run(verbose=False)
+    torch.cuda.synchronize()
+    counts = tj.launch_counts()
+    _add(total, counts)
+    print(f"[examples] examples/kuramoto_sivashinsky.py: mlp([2,32,32,1]) "
+          f"on 51 x 11 nodes, jet to order 4, f32: Adam 3000 steps "
+          f"{out['stage_s'][0]:.2f} s (rel L2 {out['per_stage'][0][1]:.4e}), "
+          f"L-BFGS 600 eager steps {out['stage_s'][1]:.2f} s "
+          f"({1e3 * out['stage_s'][1] / 600:.3f} ms/step); loss "
+          f"{out['loss']:.4e}; rel L2 {out['rel_l2']:.4e} (limit {KS_LIMIT}, "
+          f"the JAX example's on a CPU); launches counted {counts}; {card}")
+    _require_counts("kuramoto-sivashinsky", counts, True)
+    if not out["rel_l2"] < KS_LIMIT:
+        raise AssertionError(f"kuramoto-sivashinsky: rel L2 {out['rel_l2']}")
+    return total
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3361,7 +3550,9 @@ def main() -> int:
             29: lambda: phase_pino_pde(card),
             30: lambda: phase_ensembles(card),
             31: lambda: phase_scale_out(card),
-            32: lambda: phase_export(card)}
+            32: lambda: phase_export(card),
+            33: lambda: phase_beltrami(card),
+            34: lambda: phase_examples(card)}
     totals: dict = {}
     for number, run in runs.items():
         LAUNCH_SHAPES.clear()
