@@ -24,8 +24,9 @@ lines, their seconds and the memory left allocated, and raise on failure:
 3. kernel vs plain: each kernel (tanh_jet2 forward, backward, jvp) against
    its plain PyTorch version at the shape each path below gives it, in
    float32 and float64, and both times at the dense path's shape; after
-   each later phase the script refuses a shape that a kernel was launched
-   at and this phase did not check;
+   each later phase every shape a kernel was launched at that was not
+   checked yet is held to the plain version the same way (the docs pages
+   of phase 35 launch at many small shapes);
 4. card vs CPU: one loss and gradient of the dense bench problem at batch
    32,768, same parameters and points, on the card and the CPU (plain);
 5. dense main path: one warm-up step and 20 timed steps through
@@ -149,22 +150,32 @@ lines, their seconds and the memory left allocated, and raise on failure:
     `examples/helmholtz3d_spinn.py` at its 2,000 steps (rel L2 bound),
     the Taylor-Green SPINN on 128^3 and the dense Taylor-Green net at
     width 128 for part of their first stage, and Kuramoto-Sivashinsky
-    through Adam and L-BFGS (rel L2 bound).
+    through Adam and L-BFGS (rel L2 bound);
+35. the documentation: every page of `docs/torch/` through the shared
+    runner (`scripts/torch_docs_runner.py`) under its caps on the card, one
+    line a page (seconds, the last printed lines, tanh_jet2 launches with
+    the replays of captured graphs); a page that raises or prints a NaN or
+    an inf fails the phase, and so does memory left allocated beyond
+    phase 34's level.
 
-Phases 9, 11 to 19, 21 to 23, 28 to 31, 33 and 34 train through `solve`,
-which on the card runs each kind of step once as it is, then captures it as
-a CUDA graph and replays it: a counter sees the eager step and the capture,
-not the replays. So the JSON line of kernels sums the launches of the eager
-paths (phases 5, 6, 8 and 20), of phases 18 and 21 to 23, of phase 26's jet
-sampler (whose draws replay a captured graph too), of phase 31's solve
-under the mesh and of the example programs' solves in phases 33 and 34,
-which set the counts to 0 just before each of their solves or samplers,
-read them just after and require the forward and backward kernels in them
-(the eager step and the capture) wherever the path takes second derivatives
-by Taylor mode; every other graph phase, like phase 10 (Gauss-Newton's LSQR
-graph), prints its own counts apart; phases 27 to 30 and 32 print theirs,
-which must be 0. The last line is ``{"ok": true, "device": {"platform":
-"gpu", "kind": ..., "count": ...}}``. Without a CUDA device it exits
+Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 35 train through
+`solve`, which on the card runs each kind of step once as it is, then
+captures it as a CUDA graph and replays it: a wrapper's counter sees the
+eager step and the capture, and each replay reports the launches of its
+capture to `kernels.tanh_jet.add_replayed` (the graphs of `solve`, of the
+HMC draws and of Gauss-Newton's inner iterations). The JSON line of
+kernels sums, over the counted phases, the wrappers' launches (the eager
+paths of phases 5, 6, 8 and 20, phases 18 and 21 to 23, phase 26's jet
+sampler, phase 31's solve under the mesh, the example programs' solves in
+phases 33 and 34 and the pages of phase 35, each counted from 0 just
+before its solve, sampler or page and read just after, with the forward
+and backward kernels required wherever the path takes second derivatives
+by Taylor mode) and the launches of every replay in those phases; a
+`[launches]` line gives the two parts per phase. Every other graph phase,
+like phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart;
+phases 27 to 30 and 32 print theirs, which must be 0. The last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``. Without a CUDA device it exits
 non-zero and prints no result.
 
 Cuts against the recipes, each named where its phase prints: phase 11 runs
@@ -260,7 +271,10 @@ ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
 # summed in the kernels line
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34)
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35)
+# memory the docs pages (phase 35) may leave allocated beyond phase 34's:
+# the quadrature rules kept on the device per dtype (`rule_tensors`)
+DOCS_MEMORY_SLACK = 64 * 2**20
 INTEGRAL_ORDER = 20         # nodes of each point's integral (phase 18)
 IDE_BATCH = 8_192
 IDE_STEPS = 3_000
@@ -399,60 +413,88 @@ def _in_turns(timer, plain, kernel) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def phase_kernels(card: str) -> list[dict]:
+def _check_kernels(shape, dtype, g, results: dict, card: str,
+                   tag: str = "") -> None:
+    """Each kernel against its plain version at ``shape`` and ``dtype``
+    (`TOL`); the largest error goes into ``results``; at the dense path's
+    shape both are timed in turns."""
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
 
+    z, z1, z2, ga, ga1, ga2 = (
+        2 * torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+        for _ in range(6))
+    cases = {
+        "tanh_jet2_forward": (
+            lambda: tj.tanh_jet2_forward_cuda(z, z1, z2),
+            lambda: tj.tanh_jet2_reference(z, z1, z2)),
+        "tanh_jet2_backward": (
+            lambda: tj.tanh_jet2_backward_cuda(z, z1, z2, ga, ga1, ga2),
+            lambda: tj.tanh_jet2_backward_reference(z, z1, z2, ga, ga1,
+                                                    ga2)),
+        "tanh_jet2_jvp": (
+            lambda: tj.tanh_jet2_jvp_cuda(z, z1, z2, ga, ga1, ga2),
+            lambda: tj.tanh_jet2_jvp_reference(z, z1, z2, ga, ga1, ga2)),
+    }
+    for name, (kernel, plain) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL[dtype])
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        r = results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        line = (f"[kernel]{tag} {name} {str(dtype)[6:]} {shape}: "
+                f"max_abs_err {err:.3e} (tolerance {TOL[dtype]})")
+        if shape == KERNEL_SHAPE and not tag:
+            ms, plain_ms = _in_turns(_device_ms, plain, kernel)
+            call_ms, plain_call_ms = _in_turns(_event_ms, plain, kernel)
+            line += (f"; device time kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms; per call with launch "
+                     f"kernel {call_ms:.4f} ms, plain "
+                     f"{plain_call_ms:.4f} ms; {card}")
+            if dtype == torch.float32:
+                r.update(ms=ms, plain_ms=plain_ms)
+        print(line)
+
+
+def phase_kernels(card: str) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype in (torch.float32, torch.float64):
         for shape in CHECK_SHAPES:
-            z, z1, z2, ga, ga1, ga2 = (
-                2 * torch.randn(shape, generator=g, dtype=dtype,
-                                device="cuda") for _ in range(6))
-            cases = {
-                "tanh_jet2_forward": (
-                    lambda: tj.tanh_jet2_forward_cuda(z, z1, z2),
-                    lambda: tj.tanh_jet2_reference(z, z1, z2)),
-                "tanh_jet2_backward": (
-                    lambda: tj.tanh_jet2_backward_cuda(z, z1, z2, ga, ga1,
-                                                       ga2),
-                    lambda: tj.tanh_jet2_backward_reference(z, z1, z2, ga,
-                                                            ga1, ga2)),
-                "tanh_jet2_jvp": (
-                    lambda: tj.tanh_jet2_jvp_cuda(z, z1, z2, ga, ga1, ga2),
-                    lambda: tj.tanh_jet2_jvp_reference(z, z1, z2, ga, ga1,
-                                                       ga2)),
-            }
-            for name, (kernel, plain) in cases.items():
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                torch.cuda.synchronize()
-                for a, b in zip(got, want):
-                    torch.testing.assert_close(a, b, **TOL[dtype])
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(got, want))
-                r = results.setdefault(name, dict(max_abs_err=0.0))
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                line = (f"[kernel] {name} {str(dtype)[6:]} {shape}: "
-                        f"max_abs_err {err:.3e} (tolerance {TOL[dtype]})")
-                if shape == KERNEL_SHAPE:
-                    ms, plain_ms = _in_turns(_device_ms, plain, kernel)
-                    call_ms, plain_call_ms = _in_turns(_event_ms, plain,
-                                                       kernel)
-                    line += (f"; device time kernel {ms:.4f} ms, plain "
-                             f"{plain_ms:.4f} ms; per call with launch "
-                             f"kernel {call_ms:.4f} ms, plain "
-                             f"{plain_call_ms:.4f} ms; {card}")
-                    if dtype == torch.float32:
-                        r.update(ms=ms, plain_ms=plain_ms)
-                print(line)
+            _check_kernels(shape, dtype, g, results, card)
     return [dict(name=name, route="cuda",
                  source="neuralpde_tpu_torch/csrc/tanh_jet.cu",
                  replaces="neuralpde_tpu/ops/derivatives.py:84",
                  **_bound(name, KERNEL_SHAPE, torch.float32),
                  library_ms=None, **r)
             for name, r in results.items()]
+
+
+def check_launched_shapes(number: int, checked: set, kernels: list[dict],
+                          card: str) -> None:
+    """Hold every kernel to its plain version at each shape launched in
+    phase ``number`` that no phase checked yet (float32 and float64), as
+    phase 3 does, and fold the errors into ``kernels``."""
+    from neuralpde_tpu_torch.kernels.tanh_jet import LAUNCH_SHAPES
+
+    new = sorted({shape for _, shape in LAUNCH_SHAPES} - checked)
+    if not new:
+        return
+    g = torch.Generator(device="cuda").manual_seed(number)
+    results: dict = {}
+    for shape in new:
+        for dtype in (torch.float32, torch.float64):
+            _check_kernels(shape, dtype, g, results, card,
+                           tag=f"[phase {number}]")
+        checked.add(shape)
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               results[k["name"]]["max_abs_err"])
+    print(f"[kernel] phase {number}: {len(new)} new launched shape(s) held "
+          f"to the plain versions: {new}")
 
 
 # Tensors each kernel reads and writes, and float operations per element
@@ -3507,6 +3549,49 @@ def phase_examples(card: str) -> dict:
     return total
 
 
+def _docs_runner():
+    """`scripts/torch_docs_runner.py`, the runner the CPU tests use too."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_docs_runner.py")
+    spec = importlib.util.spec_from_file_location("torch_docs_runner", path)
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    return runner
+
+
+def phase_docs(card: str) -> dict:
+    """Every page of `docs/torch/` under the runner's caps on the card, as
+    written (``DEVICE = "cuda"``).  A page that raises or prints a NaN or an
+    inf fails.  Returns the wrappers' launches summed over the pages (the
+    replays are counted apart by `main`)."""
+    runner = _docs_runner()
+    total: dict = {}
+    seconds = 0.0
+    for page in runner.pages():
+        if not runner.blocks(page):
+            print(f"[docs] {page}: no python block")
+            continue
+        res = runner.run_page(page, mode="capped", device="cuda")
+        bad = runner.nonfinite(res)
+        if bad:
+            raise AssertionError(f"docs page {page} printed a non-finite "
+                                 f"metric: {bad}")
+        _add(total, res["eager_launches"])
+        seconds += res["seconds"]
+        shown = " | ".join(ln.strip()[:90] for ln in res["printed"][-3:])
+        launched = "/".join(str(n) for n in res["launches"].values())
+        replayed = "/".join(str(n) for n in res["replayed_launches"].values())
+        print(f"[docs] {page}: {res['seconds']:.2f} s, {res['blocks']} "
+              f"blocks ({res['skipped']} skipped); last printed: {shown}; "
+              f"tanh_jet2 forward/backward/jvp launches {launched} (by "
+              f"replays {replayed})", flush=True)
+    print(f"[docs] {len(runner.pages())} pages in {seconds:.1f} s under the "
+          f"caps {runner.CAPS}; {card}")
+    return total
+
+
 def _timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3521,7 +3606,7 @@ def main() -> int:
     card = f"card: {smi}"
     _timed("build", phase_build)
     kernels = _timed("kernel", phase_kernels, card)
-    from neuralpde_tpu_torch.kernels.tanh_jet import LAUNCH_SHAPES
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
     runs = {4: lambda: phase_card_vs_cpu(),
             5: lambda: phase_main_path(card),
             6: lambda: phase_transforms(card),
@@ -3552,19 +3637,28 @@ def main() -> int:
             31: lambda: phase_scale_out(card),
             32: lambda: phase_export(card),
             33: lambda: phase_beltrami(card),
-            34: lambda: phase_examples(card)}
+            34: lambda: phase_examples(card),
+            35: lambda: phase_docs(card)}
     totals: dict = {}
+    checked = set(CHECK_SHAPES)
+    allocated = {}
     for number, run in runs.items():
-        LAUNCH_SHAPES.clear()
+        tj.LAUNCH_SHAPES.clear()
+        tj.reset_replayed_counts()
         counts = _timed(f"phase {number}", run)
-        unchecked = sorted({shape for _, shape in LAUNCH_SHAPES}
-                           - set(CHECK_SHAPES))
-        if unchecked:
-            raise AssertionError(
-                f"phase {number} launched kernels at {unchecked}, shapes at "
-                "which phase 3 did not hold them against their plain versions")
+        allocated[number] = torch.cuda.memory_allocated()
+        replayed = tj.replayed_counts()
+        check_launched_shapes(number, checked, kernels, card)
         if number in COUNTED_PHASES:
             _add(totals, counts)
+            _add(totals, replayed)
+            print(f"[launches] phase {number}: through the wrappers "
+                  f"{counts}, by graph replays {replayed}")
+    if allocated[35] > allocated[34] + DOCS_MEMORY_SLACK:
+        raise AssertionError(
+            f"phase 35 left {(allocated[35] - allocated[34]) / 2**20:.1f} MiB "
+            f"allocated beyond phase 34's level (slack "
+            f"{DOCS_MEMORY_SLACK / 2**20:.0f} MiB)")
     for k in kernels:
         k["launches"] = totals[k["name"]]
     print(json.dumps({"kernels": [

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from ..kernels.tanh_jet import add_replayed, counts_since, launch_counts
 from ..parallel.mesh import check_mesh, gather_ranks, mesh_slice, no_mesh
 from ..train import _side_stream
 
@@ -271,6 +272,7 @@ class _Graphed:
             return
         if self.graph is None:
             t0 = time.perf_counter()
+            before = launch_counts()
             graph = torch.cuda.CUDAGraph()
             if self.generator is not None:
                 graph.register_generator_state(self.generator)
@@ -282,9 +284,11 @@ class _Graphed:
                 raise RuntimeError(f"hmc: the {self.what} could not be "
                                    f"captured as a CUDA graph: {e}") from e
             self.graph = graph
+            self.launched = counts_since(before)
             self.captures += 1
             self.capture_seconds += time.perf_counter() - t0
         self.graph.replay()
+        add_replayed(self.launched)
         self.replays += 1
 
     def stats(self) -> dict:

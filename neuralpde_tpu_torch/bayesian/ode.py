@@ -96,6 +96,11 @@ class LogTargetDensity:
 
     # --- NN trial function ------------------------------------------------
     def phi(self, t, theta_nn_vec):
+        """The trial function at times ``t`` (N,) -> (n_out, N): a tensor,
+        or a numpy array or list, which takes the density's dtype and
+        device (as the JAX package's ``phi`` takes numpy times)."""
+        t = torch.as_tensor(t, dtype=self.init_flat_nn.dtype,
+                            device=self.init_flat_nn.device)
         out = functional_call(self.chain, self.unravel(theta_nn_vec),
                               (t[None, :],), strict=True)
         return self.u0[:, None] + (t[None, :] - self.t0) * out

@@ -19,7 +19,7 @@ Run:
 
     python -m neuralpde_tpu_torch.examples.beltrami_spinn [--nodes 65]
         [--rank 64] [--iters 20000] [--stages "1:1e-3,10:5e-4,30:5e-4"]
-        [--save theta.pt] [--load theta.pt] [--device cuda]
+        [--save theta.pt] [--load theta.pt] [--seed 0] [--device cuda]
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def make_nets(rank: int, hidden: int = 64, dtype=torch.float32) -> list:
 
 def make_problem(nets: list, causal_eps: float, *, nodes=65,
                  precision: str = "highest", dtype=torch.float32,
-                 device="cuda", init_params=None):
+                 device="cuda", init_params=None, seed: int = 0):
     """One causal stage on the static tensor grid: ``nodes`` per axis (an
     int, or one count per axis x, y, z, t), the BC weights of
     `BC_WEIGHTS`."""
@@ -138,7 +138,7 @@ def make_problem(nets: list, causal_eps: float, *, nodes=65,
                                  causal_eps=causal_eps)
     return discretize(system, PhysicsInformedNN(
         nets, strategy, dtype=dtype, device=device, init_params=init_params,
-        matmul_precision=precision,
+        matmul_precision=precision, seed=seed,
         adaptive_loss=NonAdaptiveLoss(bc_loss_weights=BC_WEIGHTS)))
 
 
@@ -166,18 +166,18 @@ def rel_l2_velocities(nets: list, theta: dict, n_eval: int = 33) -> float:
 def run(nodes=65, rank: int = 64, iters: int = 20000,
         precision: str = "highest", stages=DEFAULT_STAGES, theta=None,
         save: str | None = None, verbose: bool = True, *, hidden: int = 64,
-        n_eval: int = 33, device="cuda") -> dict:
+        n_eval: int = 33, device="cuda", seed: int = 0) -> dict:
     """The full eps-continuation recipe: each stage `solve`s ``iters`` Adam
-    steps from the last one's parameters (``theta`` warm-starts the
-    first).  Returns ``{"rel_l2", "wall_s", "per_stage": [(eps, rel_l2),
-    ...], "losses": [...]}``."""
+    steps from the last one's parameters (``theta`` warm-starts the first;
+    else ``seed`` draws the initial parameters).  Returns ``{"rel_l2",
+    "wall_s", "per_stage": [(eps, rel_l2), ...], "losses": [...]}``."""
     nets = make_nets(rank, hidden)
     per_stage, losses = [], []
     rel = float("nan")
     t0 = time.perf_counter()
     for eps, lr in stages:
         prob = make_problem(nets, eps, nodes=nodes, precision=precision,
-                            device=device)
+                            device=device, seed=seed)
         if theta is not None:
             prob = prob.with_params(
                 {k: v.to(prob.pinnrep.device) for k, v in theta.items()})
@@ -217,13 +217,16 @@ def main(argv=None) -> dict:
                     help="save the trained params (torch.save) to this path")
     ap.add_argument("--load", default=None,
                     help="warm-start from a --save'd params file")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the initial parameters")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     theta = (torch.load(args.load, weights_only=True) if args.load
              else None)
     out = run(nodes=args.nodes, rank=args.rank, iters=args.iters,
               precision=args.precision, stages=parse_stages(args.stages),
-              theta=theta, save=args.save, device=args.device)
+              theta=theta, save=args.save, device=args.device,
+              seed=args.seed)
     print(json.dumps(out))
     return out
 

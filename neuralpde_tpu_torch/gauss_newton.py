@@ -29,6 +29,7 @@ import torch
 from torch.func import jvp, vjp, vmap
 
 from .config import matmul_precision as _matmul_precision
+from .kernels.tanh_jet import add_replayed, counts_since, launch_counts
 from .strategies import (
     GridTraining, QuadratureTraining, WeightedIntervalTraining,
     generate_training_sets, julia_range,
@@ -356,12 +357,15 @@ def _iterate(step, state: tuple, iters: int,
     if warm == iters:
         return state
     static = tuple(t.clone() for t in state)
+    before = launch_counts()
     captured = torch.cuda.CUDAGraph()
     with torch.cuda.graph(captured, stream=torch.cuda.current_stream()):
         for buf, new in zip(static, step(static)):
             buf.copy_(new)
+    launched = counts_since(before)
     for _ in range(iters - warm):
         captured.replay()
+    add_replayed(launched, iters - warm)
     if graph is not None:
         graph["captures"] += 1
         graph["replays"] += iters - warm

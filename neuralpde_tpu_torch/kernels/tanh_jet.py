@@ -26,6 +26,9 @@ launches the kernel or raises.  `tanh_jet2.launches` counts kernel launches
 of all three kernels; `tanh_jet2_forward_cuda.launches`,
 `tanh_jet2_backward_cuda.launches` and `tanh_jet2_jvp_cuda.launches` count
 each kernel's own; `LAUNCH_SHAPES` holds every (kernel, shape) launched.
+A replay of a captured CUDA graph launches the kernels its capture counted
+without passing through the wrappers: a graph runner reports each replay
+with `add_replayed`, and `replayed_counts` holds those launches apart.
 """
 
 from __future__ import annotations
@@ -320,16 +323,44 @@ KERNELS = {"tanh_jet2_forward": tanh_jet2_forward_cuda,
            "tanh_jet2_jvp": tanh_jet2_jvp_cuda}
 
 
+# each kernel's launches made by replays of captured CUDA graphs
+_REPLAYED: dict[str, int] = {}
+
+
 def reset_launch_counts() -> None:
-    """Set every launch count to 0."""
+    """Set every launch count to 0 (not the replayed ones)."""
     tanh_jet2.launches = 0
     for fn in KERNELS.values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches since the last reset."""
+    """Each kernel's launches through its wrapper since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def add_replayed(captured: dict, replays: int = 1) -> None:
+    """Count ``replays`` replays of a graph whose capture launched
+    ``captured`` (a `launch_counts` difference)."""
+    for name, n in captured.items():
+        _REPLAYED[name] += n * replays
+
+
+def reset_replayed_counts() -> None:
+    """Set every replayed count to 0."""
+    for name in KERNELS:
+        _REPLAYED[name] = 0
+
+
+def replayed_counts() -> dict:
+    """Each kernel's launches made by graph replays since the last reset."""
+    return dict(_REPLAYED)
+
+
+def counts_since(before: dict) -> dict:
+    """Each kernel's wrapper launches since ``before`` (a `launch_counts`)."""
+    return {name: n - before[name] for name, n in launch_counts().items()}
+
+
 reset_launch_counts()
+reset_replayed_counts()

@@ -37,8 +37,9 @@ def initialize_distributed(coordinator_address: str | None = None,
     ``coordinator_address`` (``host:port``, ``tcp://host:port`` or
     ``file:///path``, the last for processes of one host), ``num_processes``
     and ``process_id``.  ``device`` (default ``cuda:{LOCAL_RANK}``, made the
-    current card) picks the backend: NCCL for a card, gloo for ``"cpu"``."""
-    if device is None:
+    current card; a ``"cuda"`` without an index means that card too) picks
+    the backend: NCCL for a card, gloo for ``"cpu"``."""
+    if device is None or torch.device(device) == torch.device("cuda"):
         local = int(os.environ.get("LOCAL_RANK", process_id or 0))
         device = torch.device("cuda", local)
     device = torch.device(device)

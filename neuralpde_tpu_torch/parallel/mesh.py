@@ -81,13 +81,17 @@ def _require_group() -> None:
 
 
 def _rank_device(device) -> torch.device:
-    """``device`` as given, or this rank's card ``cuda:{LOCAL_RANK}``."""
+    """``device`` as given, or this rank's card ``cuda:{LOCAL_RANK}`` (for
+    None and for a ``"cuda"`` without an index)."""
     if device is not None:
-        return torch.device(device)
-    local = int(os.environ.get("LOCAL_RANK",
-                               dist.get_rank() % max(
-                                   torch.cuda.device_count(), 1)))
-    return torch.device("cuda", local)
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return torch.device("cuda", dist.get_rank()
+                            % max(torch.cuda.device_count(), 1))
+    return torch.device("cuda", int(local))
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = BATCH_AXIS,

@@ -173,8 +173,10 @@ def _residuals(phi: PINOPhi, prob: ODEProblem, p, t, theta):
     f_pt = vmap(vmap(f_one, in_dims=(1, None, 0), out_dims=1),
                 in_dims=(1, 1, None), out_dims=1)    # (n_out, P, T)
     f_vec = f_pt(out, p, t[0])
-    u0_t = torch.as_tensor(u0_arr, dtype=out.dtype, device=out.device)
-    return du - f_vec, u_at_t0 - u0_t[:, None, None]
+    # u0 enters as Python numbers: a tensor made here from the host array
+    # would be a host-to-device copy inside the captured step
+    return du - f_vec, torch.stack([u_at_t0[i] - float(u0_arr[i])
+                                    for i in range(n_out)])
 
 
 def _losses(phi: PINOPhi, prob: ODEProblem, p, t, theta):

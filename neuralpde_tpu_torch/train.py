@@ -41,6 +41,7 @@ from typing import Any, Callable
 import torch
 
 from .config import matmul_precision
+from .kernels.tanh_jet import add_replayed, counts_since, launch_counts
 from .logging_utils import logscalar, logvector
 from .parallel.mesh import BATCH_AXIS, all_reduce_flat, get_mesh
 
@@ -353,8 +354,9 @@ class GraphedSteps:
     current stream (a side stream) and replayed from then on.  The graph
     holds the parameters, gradients, optimizer and adaptive state, and the
     returned loss and aux, at fixed addresses; the solve's generator is
-    registered with it, so each replay draws fresh points.  Counters of
-    kernel launches see a captured step once, not its replays.
+    registered with it, so each replay draws fresh points.  The kernels'
+    wrappers count a captured step's launches once; each replay reports
+    them again to `kernels.tanh_jet.add_replayed`.
     """
 
     def __init__(self, step: TrainStep, carry, generator: torch.Generator):
@@ -378,13 +380,15 @@ class GraphedSteps:
                                  self.generator, kind)
         if kind not in self._graphs:
             self._graphs[kind] = self._capture(kind)
-        graph, out = self._graphs[kind]
+        graph, out, launched = self._graphs[kind]
         graph.replay()
+        add_replayed(launched)
         self.replays += 1
         return out
 
     def _capture(self, reweight: bool):
         t0 = time.perf_counter()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         try:
@@ -399,7 +403,7 @@ class GraphedSteps:
                 f"{', reweighting' if reweight else ''}): {e}") from e
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
-        return graph, out
+        return graph, out, counts_since(before)
 
     def stats(self) -> dict:
         return {"captures": self.captures,

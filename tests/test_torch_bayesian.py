@@ -105,6 +105,19 @@ def _ode_densities(strategy, *, data=True, param=True, autodiff=True,
     return jl, tl
 
 
+def test_trial_function_takes_numpy_times_as_jax():
+    """``ltd.phi(ts, theta_nn)`` on numpy times, the documented call of
+    `docs/src/manual/bpinns.md`, gives the JAX package's values."""
+    jl, tl = _ode_densities(ODE_STRATEGIES["grid"], data=False, param=False)
+    theta = np.random.default_rng(4).normal(size=tl.n_nn)
+    ts = np.linspace(0.0, 1.5, 11)
+    want = np.asarray(jl.phi(ts, jnp.asarray(theta)))
+    got = tl.phi(ts, torch.tensor(theta)).numpy()
+    assert got.shape == want.shape == (1, 11)
+    assert rel_err(got, want) < 1e-12
+    assert rel_err(tl.phi(list(ts), torch.tensor(theta)).numpy(), want) < 1e-12
+
+
 ODE_STRATEGIES = {
     "grid": lambda pkg: pkg.GridTraining(0.1),
     "weighted": lambda pkg: pkg.WeightedIntervalTraining([0.5, 0.3, 0.2], 20,

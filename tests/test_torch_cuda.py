@@ -227,6 +227,71 @@ def test_solve_replays_a_captured_step_equal_to_eager_steps(cuda):
         torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
 
 
+def test_replayed_launches_are_counted_apart_from_the_wrappers():
+    """A graph runner reports each replay with the launches its capture
+    counted (`counts_since`); the wrappers' own counts do not move."""
+    tj.reset_launch_counts()
+    tj.reset_replayed_counts()
+    before = tj.launch_counts()
+    tj.tanh_jet2_forward_cuda.launches += 2      # what a capture counts
+    tj.tanh_jet2_backward_cuda.launches += 1
+    captured = tj.counts_since(before)
+    assert captured == {"tanh_jet2_forward": 2, "tanh_jet2_backward": 1,
+                        "tanh_jet2_jvp": 0}
+    tj.add_replayed(captured, 5)
+    tj.add_replayed(captured)
+    assert tj.replayed_counts() == {"tanh_jet2_forward": 12,
+                                    "tanh_jet2_backward": 6,
+                                    "tanh_jet2_jvp": 0}
+    assert tj.launch_counts()["tanh_jet2_forward"] == 2
+    tj.reset_launch_counts()
+    assert tj.replayed_counts()["tanh_jet2_forward"] == 12
+    tj.reset_replayed_counts()
+    assert set(tj.replayed_counts().values()) == {0}
+
+
+@pytest.mark.cuda
+def test_solve_reports_each_replay_with_its_captured_launches(cuda):
+    """`solve`'s graph runner: the eager step and the capture launch the
+    step's kernels through the wrappers, each replay reports them again."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.GridTraining(0.1))
+    tj.reset_launch_counts()
+    tj.reset_replayed_counts()
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=8, inner_steps=4)
+    eager, replayed = tj.launch_counts(), tj.replayed_counts()
+    g = res.aux["cuda_graph"]
+    assert g["captures"] == 1 and g["replays"] >= 1
+    assert eager["tanh_jet2_forward"] > 0
+    per_step = {k: n // 2 for k, n in eager.items()}   # eager step + capture
+    assert replayed == {k: n * g["replays"] for k, n in per_step.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u0,sizes", [(0.0, [3, 8, 1]),
+                                      ((1.0, 0.5), [3, 8, 2])],
+                         ids=["scalar", "vector"])
+def test_pinoode_on_a_plain_chain_is_captured(cuda, u0, sizes):
+    """`solve_pino_ode` with a plain chain replays its captured step (its
+    IC residual copies nothing from the host inside the capture)."""
+    import neuralpde_tpu_torch as npde
+
+    def f(u, p, t):
+        out = p[0] * torch.cos(p[1] * t)
+        return out if sizes[-1] == 1 else [out, -u[0]]
+
+    sol = npde.solve_pino_ode(
+        npde.ODEProblem(f, np.asarray(u0), (0.0, 1.0)),
+        npde.PINOODE(npde.mlp(sizes), npde.adam(1e-2),
+                     bounds=[(1.0, 2.0), (2.0, 3.0)], number_of_parameters=8,
+                     strategy=npde.StochasticTraining(16)),
+        maxiters=6, inner_steps=3, device=cuda)
+    g = sol.original.aux["cuda_graph"]
+    assert g["captures"] == 1 and g["replays"] == 5    # steps 1-5
+    assert np.isfinite(sol.original.objective)
+
+
 @pytest.mark.cuda
 def test_each_replay_draws_fresh_points(cuda):
     import neuralpde_tpu_torch as npde

@@ -48,6 +48,30 @@ def test_per_process_batch_without_a_group():
     assert per_process_batch(64) == 64
 
 
+def test_a_bare_cuda_device_means_the_ranks_card(monkeypatch):
+    """``device="cuda"`` (what a page passes as its ``DEVICE``) joins the
+    group on the rank's card, as the default does: NCCL on
+    ``cuda:{LOCAL_RANK}``, made the current card; the mesh's device too.
+    The JAX package's ``initialize_distributed()`` takes no device."""
+    import torch
+
+    from neuralpde_tpu_torch.parallel import distributed, mesh
+
+    seen = {}
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.setdefault("card", d))
+    monkeypatch.setattr(distributed.dist, "init_process_group",
+                        lambda backend, **kw: seen.setdefault("backend",
+                                                              backend))
+    distributed.initialize_distributed("file:///unused", 4, 3,
+                                       device="cuda")
+    assert seen == {"card": torch.device("cuda", 3), "backend": "nccl"}
+    assert mesh._rank_device("cuda") == torch.device("cuda", 3)
+    assert mesh._rank_device("cuda:1") == torch.device("cuda", 1)
+    assert mesh._rank_device("cpu") == torch.device("cpu")
+
+
 def test_two_process_sharded_train_step(ranks):
     tree = jax.tree.map(jnp.asarray, ranks.tree)
     # dx = 1/3: 16 interior points and 4 a boundary, which split over 2

@@ -1,0 +1,117 @@
+"""The port's documentation (`docs/torch/`) runs on the port.
+
+* Every page's ``python`` blocks execute on the CPU through the shared
+  runner (`scripts/torch_docs_runner.py`, the runner `chip_smoke.py` phase
+  35 uses on the card) under its ``capped`` budgets, with the ``DEVICE``
+  binding rewritten to ``"cpu"``; a page with no python block is skipped
+  as `tests/test_docs_runner.py` skips one, and no printed metric may be
+  a NaN or an inf.
+* Coverage: one port page per `docs/src` page at the same relative path
+  and no other; each page has substance (>= 60 lines, the JAX pages'
+  rule); no block imports JAX, optax, flax, haiku or the JAX package, and
+  every `neuralpde_tpu_torch` name a block imports resolves; the first
+  runnable block of a page binds ``DEVICE = "cuda"``; no line that names
+  the TPU, the v5e or XLA states a number unless it quotes the JAX
+  package and says so.
+"""
+
+import ast
+import importlib
+import importlib.util
+import os
+import re
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+JAX_DOCS = os.path.join(ROOT, "docs", "src")
+
+_spec = importlib.util.spec_from_file_location(
+    "torch_docs_runner", os.path.join(ROOT, "scripts", "torch_docs_runner.py"))
+runner = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(runner)
+
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "haiku", "neuralpde_tpu"}
+_TPU = re.compile(r"\b(TPU|v5e|XLA)\b")
+
+
+def _jax_pages():
+    out = []
+    for root, _, files in os.walk(JAX_DOCS):
+        out += [os.path.relpath(os.path.join(root, f), JAX_DOCS)
+                for f in files if f.endswith(".md")]
+    return sorted(out)
+
+
+def _text(page):
+    with open(os.path.join(runner.DOCS, page)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("page", runner.pages())
+def test_docs_page_runs_on_the_port(page):
+    if not runner.blocks(page):
+        pytest.skip("no python blocks")
+    try:
+        res = runner.run_page(page, mode="capped", device="cpu")
+    except runner.PageError as e:
+        pytest.fail(str(e))
+    assert res["blocks"] > 0
+    assert not runner.nonfinite(res), runner.nonfinite(res)
+
+
+def test_every_jax_page_has_its_port_and_no_other():
+    assert runner.pages() == _jax_pages()
+
+
+def test_port_pages_have_substance():
+    thin = [(p, len(_text(p).splitlines())) for p in runner.pages()
+            if len(_text(p).splitlines()) < 60]
+    assert not thin, f"stub pages: {thin}"
+
+
+def test_port_pages_import_only_the_port_and_their_names_resolve():
+    bad, missing = [], []
+    for page in runner.pages():
+        for i, block in enumerate(runner.blocks(page)):
+            for node in ast.walk(ast.parse(block)):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    mods = [node.module]
+                else:
+                    continue
+                for m in mods:
+                    if m.split(".")[0] in FORBIDDEN:
+                        bad.append(f"{page}#{i}: {m}")
+                if (isinstance(node, ast.ImportFrom) and node.module
+                        .split(".")[0] == "neuralpde_tpu_torch"):
+                    mod = importlib.import_module(node.module)
+                    missing += [
+                        f"{page}#{i}: {node.module}.{a.name}"
+                        for a in node.names if not hasattr(mod, a.name)
+                        and not importlib.util.find_spec(
+                            f"{node.module}.{a.name}")]
+    assert not bad, f"blocks importing JAX or the JAX package: {bad}"
+    assert not missing, f"unresolved imports: {missing}"
+
+
+def test_first_runnable_block_binds_the_card():
+    wrong = []
+    for page in runner.pages():
+        runnable = [b for b in runner.blocks(page)
+                    if runner.runs(b, "full", "cuda")]
+        if runnable and not re.search(r'^DEVICE = "cuda"$', runnable[0],
+                                      re.MULTILINE):
+            wrong.append(page)
+    assert not wrong, f'first runnable block without DEVICE = "cuda": {wrong}'
+
+
+def test_no_tpu_numbers_except_quoted_jax_records():
+    found = []
+    for page in runner.pages():
+        for n, line in enumerate(_text(page).splitlines(), 1):
+            if (_TPU.search(line) and re.search(r"\d", line)
+                    and "JAX package" not in line):
+                found.append(f"{page}:{n}: {line.strip()}")
+    assert not found, "numbers beside TPU/v5e/XLA:\n" + "\n".join(found)

@@ -126,6 +126,30 @@ def test_pinoode_loss_and_gradient_match_jax(kind, train):
     assert gerr < tol
 
 
+def test_pinoode_scalar_chain_family_matches_jax():
+    """The two-parameter family of `docs/src/tutorials/pino_ode.md` on a
+    plain chain with a scalar u0 (``u' = p1 cos(p2 t)``, u0 = 0): loss and
+    gradient against the JAX package.  Its IC residual subtracts u0 as a
+    number; a tensor made from the host array there could not be captured
+    on the card (`tests/test_torch_cuda.py`)."""
+    jchain, tchain = jpkg.mlp([3, 10, 1]), tpkg.mlp([3, 10, 1])
+    bounds = [(1.0, 2.0), (2.0, 3.0)]
+    jprob = jpkg.ODEProblem(lambda u, p, t: p[0] * jnp.cos(p[1] * t), 0.0,
+                            (0.0, 1.0))
+    tprob = tpkg.ODEProblem(lambda u, p, t: p[0] * torch.cos(p[1] * t), 0.0,
+                            (0.0, 1.0))
+    p, t = jpino._stochastic_trainset(jax.random.key(4), bounds, 6,
+                                      (0.0, 1.0), 9, jnp.float64)
+    tp, tt = torch.tensor(np.asarray(p)), torch.tensor(np.asarray(t))
+    _, jtheta, ttheta = _trees(jchain, 3)
+    jphi, tphi = jpino.PINOPhi(jchain), tpino.PINOPhi(tchain)
+    want, got, gerr = _value_and_grad(
+        lambda th: jpino._losses(jphi, jprob, p, t, th),
+        lambda th: tpino._losses(tphi, tprob, tp, tt, th), jtheta, ttheta)
+    assert abs(got - want) < 1e-6 * abs(want)
+    assert gerr < 1e-6
+
+
 def test_pinoode_grid_train_set_matches_jax():
     p, t = jpino._grid_trainset([(0.1, 2.0)], 7, (0.25, 1.0), 0.05,
                                 jnp.float64)
