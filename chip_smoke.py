@@ -156,9 +156,14 @@ lines, their seconds and the memory left allocated, and raise on failure:
     line a page (seconds, the last printed lines, tanh_jet2 launches with
     the replays of captured graphs); a page that raises or prints a NaN or
     an inf fails the phase, and so does memory left allocated beyond
-    phase 34's level.
+    phase 34's level;
+36. L-BFGS (`npde.lbfgs()`, optax.lbfgs()'s rule): the w64 Poisson
+    `GridTraining(1/127)` jet problem for 10 float64 steps on the card and
+    on the CPU from the same parameters (parameters within a stated
+    tolerance, line-search counts equal), then the hybrid recipe's L-BFGS
+    ms a step in turns against `torch.optim.LBFGS` passed as a factory.
 
-Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 35 train through
+Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 36 train through
 `solve`, which on the card runs each kind of step once as it is, then
 captures it as a CUDA graph and replays it: a wrapper's counter sees the
 eager step and the capture, and each replay reports the launches of its
@@ -167,7 +172,8 @@ HMC draws and of Gauss-Newton's inner iterations). The JSON line of
 kernels sums, over the counted phases, the wrappers' launches (the eager
 paths of phases 5, 6, 8 and 20, phases 18 and 21 to 23, phase 26's jet
 sampler, phase 31's solve under the mesh, the example programs' solves in
-phases 33 and 34 and the pages of phase 35, each counted from 0 just
+phases 33 and 34, the pages of phase 35 and phase 36's L-BFGS runs, each
+counted from 0 just
 before its solve, sampler or page and read just after, with the forward
 and backward kernels required wherever the path takes second derivatives
 by Taylor mode) and the launches of every replay in those phases; a
@@ -265,13 +271,12 @@ EAGER_VS_GRAPH_RTOL = 1e-6
 CAUSAL_STEPS = 10_000       # of the dense recipe's 333,000 in stage 1
 CAUSAL_BLOCK = 500
 TO_L2_CAP_S = 120.0
-TO_L2_JAX_TPU_V5E_S = {"hard": 2.0, "hybrid": 8.6}   # bench.py:482,459
 ADAPTIVE_STEPS = 300
 ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
 # summed in the kernels line
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35)
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35, 36)
 # memory the docs pages (phase 35) may leave allocated beyond phase 34's:
 # the quadrature rules kept on the device per dtype (`rule_tensors`)
 DOCS_MEMORY_SLACK = 64 * 2**20
@@ -1103,14 +1108,13 @@ def phase_to_accuracy(card: str) -> None:
         tj.reset_launch_counts()
         r = fn(max_seconds=TO_L2_CAP_S)
         counts = tj.launch_counts()
-        extra = (f"; Adam stage {r['adam_seconds']:.2f} s; L-BFGS steps run "
-                 f"eagerly: {r['lbfgs_ms_per_step']:.2f} ms/step"
+        extra = (f"; Adam stage {r['adam_seconds']:.2f} s; npde.lbfgs() "
+                 f"steps run eagerly: {r['lbfgs_ms_per_step']:.2f} ms/step"
                  if name == "hybrid" else "")
         print(f"[to-accuracy] {name}: RMS {r['rms']:.3e} after "
               f"{r['iterations']} iterations, "
               f"{'%.2f s' % r['seconds'] if r['seconds'] else 'not reached'} "
-              f"to RMS < 1e-3 (cap {TO_L2_CAP_S} s; JAX on TPU v5e: "
-              f"~{TO_L2_JAX_TPU_V5E_S[name]} s){extra}; trace "
+              f"to RMS < 1e-3 (cap {TO_L2_CAP_S} s){extra}; trace "
               f"{[(i, round(e, 6), round(t, 2)) for i, e, t in r['trace']]}; "
               f"launches counted {counts}; {card}")
         if r["seconds"] is None:
@@ -3352,8 +3356,9 @@ TG_SPINN_BLOCK = 250
 TG_DENSE_STEPS = 2_000      # of examples/taylor_green_ns.py's 2 x 20,000
 TG_DENSE_BLOCK = 250
 # examples/kuramoto_sivashinsky.py run by the JAX package on a CPU prints
-# "relative L2 0.002" (1.968533e-03 unrounded; the port's run on a CPU:
-# 6.950e-04)
+# "relative L2 0.002" (1.968533e-03 unrounded; the port's run on a CPU
+# with torch.optim.LBFGS as its L-BFGS: 6.950e-04; on the card with
+# optax's rule: 7.6383e-04)
 KS_LIMIT = 2e-3
 
 
@@ -3601,6 +3606,142 @@ def _timed(label: str, fn, *args):
     return out
 
 
+LBFGS_STEPS = 10                # phase 36: float64 steps, card against CPU
+# float64 parameters after LBFGS_STEPS steps, card against CPU: the same
+# arithmetic in other reduction orders (cuBLAS and the CPU's), whose
+# differences L-BFGS steps grow (~1e-12 after 10 steps on the CPU tests'
+# 1-D problem, tests/test_torch_solve.py)
+LBFGS_CARD_VS_CPU_RTOL = 1e-8
+LBFGS_GRID = 1.0 / 127          # the hybrid recipe's L-BFGS grid
+LBFGS_WARM_ADAM = 1_000         # Adam steps before the timed L-BFGS turns
+LBFGS_TIMED_STEPS = 50          # a turn of each optimizer
+LBFGS_TURNS = 2                 # new, torch, torch, new per turn pair
+
+
+def _lbfgs_steps(prob, n: int):
+    """``n`` `npde.lbfgs()` steps through `make_step` (as `solve` runs them)
+    -> per step (CPU copy of the parameters, stepsize, line-search steps)."""
+    import neuralpde_tpu_torch as npde
+
+    rep = prob.pinnrep
+    lf = rep.loss_functions
+    step = npde.make_step(prob.loss, npde.lbfgs(), rep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions,
+                          matmul_precision=rep.matmul_precision)
+    carry = step.init(prob.init_params, rep.adaloss.init_state(
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
+        rep.device))
+    generator = torch.Generator(device=rep.device).manual_seed(0)
+    out = []
+    for _ in range(n):
+        carry, _ = step(carry, generator)
+        st = carry[1].state[carry[1]._params[0]]
+        out.append(({k: v.detach().cpu().clone()
+                     for k, v in carry[0].items()},
+                    float(st["learning_rate"]),
+                    int(st["num_linesearch_steps"])))
+    return out
+
+
+def phase_lbfgs(card: str) -> dict:
+    """`npde.lbfgs()`, optax.lbfgs()'s rule (`train.LBFGS`), on the card:
+    the w64 Poisson `GridTraining(1/127)` jet problem for LBFGS_STEPS
+    float64 steps on the card and on the CPU from the same parameters
+    (parameters within LBFGS_CARD_VS_CPU_RTOL, line-search counts equal);
+    then the hybrid recipe's L-BFGS stage (float32, TF32 off) timed in
+    turns against `torch.optim.LBFGS` passed as a factory (strong Wolfe,
+    one iteration and at most 16 evaluations a step, the port's L-BFGS
+    before optax's rule), from the same Adam-trained parameters."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    def problem(device, dtype):
+        return npde.discretize(poisson_2d_system(), npde.PhysicsInformedNN(
+            npde.mlp([2, HIDDEN, HIDDEN, 1], dtype=dtype),
+            npde.GridTraining(LBFGS_GRID), derivative="jet", dtype=dtype,
+            device=device))
+
+    card_prob = problem("cuda", torch.float64)
+    cpu_prob = problem("cpu", torch.float64)
+    cpu_prob = cpu_prob.with_params(
+        {k: v.cpu() for k, v in card_prob.init_params.items()})
+    tj.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = _lbfgs_steps(card_prob, LBFGS_STEPS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = tj.launch_counts()
+    total = _add({}, counts)
+    t0 = time.perf_counter()
+    on_cpu = _lbfgs_steps(cpu_prob, LBFGS_STEPS)
+    cpu_s = time.perf_counter() - t0
+    worst = max(float(torch.max(torch.abs(a[k] - b[k]))
+                      / torch.max(torch.abs(b[k])))
+                for (a, _, _), (b, _, _) in zip(on_card, on_cpu) for k in a)
+    print(f"[lbfgs-card-vs-cpu] w64 Poisson GridTraining(1/127), jet, "
+          f"float64, {LBFGS_STEPS} steps: card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s; line-search steps card "
+          f"{[c for _, _, c in on_card]}, CPU {[c for _, _, c in on_cpu]}; "
+          f"stepsizes card {[round(s, 6) for _, s, _ in on_card]}; worst "
+          f"parameter rel difference {worst:.3e} (limit "
+          f"{LBFGS_CARD_VS_CPU_RTOL}); launches counted {counts}; {card}")
+    if [c for _, _, c in on_card] != [c for _, _, c in on_cpu]:
+        raise AssertionError("lbfgs: line-search counts differ card/CPU")
+    if not worst < LBFGS_CARD_VS_CPU_RTOL:
+        raise AssertionError(f"lbfgs: card against CPU {worst}")
+    _require_counts("lbfgs (float64)", counts, True)
+
+    prob = problem("cuda", torch.float32)
+    warm = npde.solve(prob, npde.adam(2e-3), maxiters=LBFGS_WARM_ADAM,
+                      inner_steps=100)
+    theta = warm.u
+    calls = [0]
+
+    def counted(th, lstate):
+        calls[0] += 1
+        return prob.loss(th, lstate)
+
+    rules = {"npde.lbfgs()": npde.lbfgs(),
+             "torch.optim.LBFGS": lambda ps: torch.optim.LBFGS(
+                 list(ps), lr=1.0, max_iter=1, max_eval=16,
+                 history_size=10, line_search_fn="strong_wolfe")}
+    times = {name: [] for name in rules}
+    for name in list(rules) + list(rules)[::-1]:       # warm-up, untimed
+        npde.solve(type(prob)(counted, theta, prob.pinnrep), rules[name],
+                   maxiters=2, inner_steps=2)
+    for turn in range(LBFGS_TURNS):
+        order = list(rules) if turn % 2 == 0 else list(rules)[::-1]
+        for name in order + order[::-1]:
+            calls[0] = 0
+            tj.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = npde.solve(type(prob)(counted, theta, prob.pinnrep),
+                             rules[name], maxiters=LBFGS_TIMED_STEPS,
+                             inner_steps=LBFGS_TIMED_STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = tj.launch_counts()
+            _add(total, counts)
+            times[name].append(1e3 * seconds / LBFGS_TIMED_STEPS)
+            print(f"[lbfgs] turn {turn}: {name} on the hybrid recipe's "
+                  f"L-BFGS stage (w64 GridTraining(1/127), jet, float32, TF32 "
+                  f"off), {LBFGS_TIMED_STEPS} steps from {LBFGS_WARM_ADAM} "
+                  f"Adam steps: {times[name][-1]:.3f} ms/step, "
+                  f"{calls[0] / LBFGS_TIMED_STEPS:.2f} loss evaluations a "
+                  f"step, loss {res.objective:.5e}; launches counted "
+                  f"{counts}; {card}")
+            _require_counts(f"lbfgs ({name})", counts, True)
+            if not res.objective < warm.objective:
+                raise AssertionError(f"lbfgs ({name}): loss {res.objective} "
+                                     f"not below Adam's {warm.objective}")
+    print(f"[lbfgs] ms/step over {2 * LBFGS_TURNS} runs each: "
+          + "; ".join(f"{name} {sorted(round(t, 3) for t in ts)}"
+                      for name, ts in times.items()) + f"; {card}")
+    return total
+
+
 def main() -> int:
     name, smi = phase_device()
     card = f"card: {smi}"
@@ -3638,7 +3779,8 @@ def main() -> int:
             32: lambda: phase_export(card),
             33: lambda: phase_beltrami(card),
             34: lambda: phase_examples(card),
-            35: lambda: phase_docs(card)}
+            35: lambda: phase_docs(card),
+            36: lambda: phase_lbfgs(card)}
     totals: dict = {}
     checked = set(CHECK_SHAPES)
     allocated = {}

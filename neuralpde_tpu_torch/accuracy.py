@@ -387,7 +387,8 @@ def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
     the 51^2 grid is below ``target``; ``mlp([2, 64, 64, 1])``, jet.  One
     untimed Adam and one L-BFGS solve warm up.  Returns ``{"seconds" (None
     if the cap was hit), "iterations", "rms", "adam_seconds",
-    "lbfgs_ms_per_step", "trace"}``; the L-BFGS steps run eagerly."""
+    "lbfgs_ms_per_step", "trace"}``; the L-BFGS steps (`lbfgs`, optax's
+    rule) run eagerly, each 500-step solve from a fresh memory."""
     system = poisson_2d_system()
     prob = discretize(system, PhysicsInformedNN(
         mlp([2, 64, 64, 1]), StochasticTraining(points, bcs_points=points // 8),

@@ -13,7 +13,8 @@ generator), takes the gradient of the sum of the member losses (the slices
 are disjoint, so each member gets exactly its own gradient) and updates the
 stacked leaves with one `train.Adam`, which being elementwise is each
 member's Adam.  On the card that step is captured as one CUDA graph and
-replayed, as `solve`'s is.
+replayed, as `solve`'s is.  Under `train.LBFGS` the step takes the members
+in turn, each with its own memory and line search, and runs eagerly.
 
 ``mesh=`` shards the member axis over the ranks of a mesh
 (`parallel.mesh`): each rank trains its ``n_ensemble / W`` members in its
@@ -43,7 +44,7 @@ import torch
 
 from ..compile.lower import depvar_params
 from ..config import matmul_precision
-from ..train import GraphedSteps, TrainStep, _side_stream, adam
+from ..train import LBFGS, GraphedSteps, TrainStep, _side_stream, adam
 from .mesh import check_mesh, gather_ranks, mesh_slice, no_mesh
 
 
@@ -132,14 +133,10 @@ class EnsembleStep(TrainStep):
                          bc_loss_fns, precision)
         self.n = n_ensemble
 
-    @staticmethod
-    def _slice(tree, m):
-        return {k: v[m] for k, v in tree.items()}
-
     def run(self, theta, opt, ada_state, generator, reweight):
         if self.needs_closure(opt):
-            raise ValueError("solve_ensemble cannot run L-BFGS: its line "
-                             "search is one per member; use adam")
+            return self._run_members(theta, opt, ada_state, generator,
+                                     reweight)
         opt.zero_grad(set_to_none=True)
         with matmul_precision(self.precision):
             losses, auxes = [], []
@@ -161,6 +158,18 @@ class EnsembleStep(TrainStep):
         aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]} \
             if auxes and auxes[0] else {}
         return losses.detach(), aux
+
+    def _run_members(self, theta, opt, ada_state, generator, reweight):
+        """`LBFGS`: the members in turn, each with its own line search (its
+        evaluations draw the member's points again), as the JAX package's
+        ``vmap`` of `optax.lbfgs` steps each member alone."""
+        if not isinstance(opt, LBFGS):
+            raise ValueError("solve_ensemble runs L-BFGS as npde.lbfgs(), "
+                             "one line search a member")
+        out = [self._run_closure(theta, opt, ada_state, generator, reweight,
+                                 member=m) for m in range(self.n)]
+        aux = {k: torch.stack([a[k] for _, a in out]) for k in out[0][1]}
+        return torch.stack([loss for loss, _ in out]), aux
 
 
 def _keep_newest(history: list) -> list:
@@ -207,9 +216,11 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
     * ``history_cap``: ``res.history`` holds ``(iteration, losses)`` pairs
       and is halved, keeping the newest, whenever it outgrows the cap.
 
-    Every member steps with one optimizer over the stacked parameters, so
-    ``optimizer`` must be elementwise (`adam`); `lbfgs` raises.  On the card
-    ``res.aux["cuda_graph"]`` counts the captures and replays.
+    Every member steps with one optimizer over the stacked parameters:
+    `adam` is elementwise, so one update steps every member; `lbfgs` steps
+    the members in turn, each with its own memory and line search (eagerly,
+    also on the card).  On the card ``res.aux["cuda_graph"]`` counts the
+    captures and replays.
     """
     mesh = check_mesh(mesh)
     mine = (mesh_slice(n_ensemble, mesh, "n_ensemble") if mesh is not None
@@ -252,9 +263,6 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
                         bc_fns, precision)
     carry = step.init(params, ada_state)
     theta, opt, ada_state, _ = carry
-    if step.needs_closure(opt):
-        raise ValueError("solve_ensemble cannot run L-BFGS: its line "
-                         "search is one per member; use adam")
 
     from ..utils.checkpoint import (
         has_checkpoint, restore_checkpoint, save_checkpoint,

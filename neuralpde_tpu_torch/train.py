@@ -4,7 +4,11 @@
 (forward and backward under the discretization's matmul precision), the
 adaptive reweighting every ``reweight_every`` iterations (with the
 per-equation gradients where the scheme needs them), and a `torch.optim`
-update.  Parameters, optimizer state and adaptive state are updated in
+update.  The port's optimizers are the JAX package's two: `Adam`
+(optax.adam's rule) and `LBFGS` (optax.lbfgs()'s two-loop recursion and
+zoom line search, which evaluates the loss again at each trial point, on
+the step's points and with the weights from before its reweighting, as
+the JAX package's ``value_fn``).  Parameters, optimizer state and adaptive state are updated in
 place.  `solve` runs blocks of ``inner_steps`` steps with no host read
 inside a block, and keeps the callback / abstol-stop protocol (reference
 semantics: src/ode_solve.jl:469-481) and logging at `log_frequency`
@@ -23,9 +27,10 @@ reweights) runs once as it is, then is captured as one CUDA graph
 (forward, backward, update; the stochastic strategies' draws come from the
 solve's generator, registered with the graph, so every replay draws fresh
 points) and replayed for every later step of that kind.  A step that fails
-to capture raises.  `torch.optim.LBFGS` reads scalars on the host in its
-line search and cannot be captured: it is the one optimizer whose steps
-run eagerly on the card.  On the CPU every step runs eagerly.
+to capture raises.  `LBFGS` (and a user's `torch.optim.LBFGS`) reads
+scalars on the host in its line search and cannot be captured: it is the
+one optimizer whose steps run eagerly on the card.  On the CPU every step
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from .config import matmul_precision
@@ -115,21 +121,344 @@ def adam(lr: float = 1e-3) -> Callable:
     return lambda params: Adam(params, lr=lr)
 
 
-# evaluations the strong-Wolfe line search may make in one step, optax's
-# default of 15 (torch's default bound, 1.25 x max_iter, would allow none
-# with one iteration per step, and the line search would return t = 0)
-LBFGS_LINESEARCH_STEPS = 15
+# optax.lbfgs()'s line search: scale_by_zoom_linesearch(
+# max_linesearch_steps=20, initial_guess_strategy="one") with the defaults
+# of its other arguments (no largest stepsize)
+LBFGS_LINESEARCH_STEPS = 20
+_SLOPE_RTOL, _CURV_RTOL, _APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
+_STEPSIZE_PRECISION, _INCREASE_FACTOR, _TOL = 1e-5, 2.0, 0.0
 
 
-def lbfgs(memory_size: int = 10) -> Callable:
-    """Optimizer factory: `torch.optim.LBFGS` with ``memory_size`` pairs of
-    history, a strong-Wolfe line search and one iteration per step, as
-    `optax.lbfgs` takes one update per step.  The two implementations
-    differ in their line search and first step, so trajectories differ.
-    Its steps run eagerly, also on the card (see the module note)."""
-    return lambda params: torch.optim.LBFGS(
-        list(params), lr=1.0, max_iter=1, max_eval=1 + LBFGS_LINESEARCH_STEPS,
-        history_size=memory_size, line_search_fn="strong_wolfe")
+def _flat(xs):
+    """The tensors as one real vector, a complex one as its real and
+    imaginary parts in turn: the real part of <x, y> summed over the
+    tensors (optax.tree.vdot's) is then one dot product."""
+    return torch.cat([(torch.view_as_real(x) if x.is_complex() else x)
+                      .reshape(-1) for x in xs])
+
+
+def _flat_memory(bufs):
+    """Stacked ``(memory, *shape)`` buffers as one ``(memory, n)`` real
+    matrix, row i `_flat` of their entries i."""
+    return torch.cat([(torch.view_as_real(b) if b.is_complex() else b)
+                      .reshape(b.shape[0], -1) for b in bufs], dim=1)
+
+
+def _leaves(vec, likes):
+    """A `_flat` vector cut back into tensors shaped like ``likes``."""
+    out, at = [], 0
+    for like in likes:
+        n = like.numel() * (2 if like.is_complex() else 1)
+        piece = vec[at:at + n]
+        at += n
+        out.append(torch.view_as_complex(piece.reshape(*like.shape, 2)
+                                         .clone())
+                   if like.is_complex() else piece.view(like.shape))
+    return out
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """optax's ``_cubicmin``: the critical point of the cubic through (a,
+    fa), (b, fb), (c, fc) with slope fpa at a; NaN where there is none."""
+    C = fpa
+    db, dc = b - a, c - a
+    denom = (db * dc) * (db * dc) * (db - dc)
+    v0, v1 = fb - fa - C * db, fc - fa - C * dc
+    A = (dc * dc * v0 + (-(db * db)) * v1) / denom
+    B = ((-(dc * (dc * dc))) * v0 + db * (db * db) * v1) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + np.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """optax's ``_quadmin``: the critical point of the quadratic through
+    (a, fa), (b, fb) with slope fpa at a."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def zoom_linesearch(value_init, slope_init, evaluate):
+    """optax's zoom line search (`scale_by_zoom_linesearch` with
+    `LBFGS_LINESEARCH_STEPS` and its defaults) along one direction, on host
+    scalars.
+
+    ``value_init``/``slope_init`` are numpy scalars of one float dtype, the
+    value at stepsize 0 and the slope there; ``evaluate(stepsize)`` returns
+    the value and the slope at a stepsize as numpy scalars of that dtype.
+    Each call to it is one step of the search: first the interval search
+    (stepsize 1, then doubled) until an interval holds a stepsize that
+    meets both the sufficient decrease (Armijo, or Hager and Zhang's
+    approximate decrease once the value is within 1e-6 of the start) and the
+    curvature criteria, then the zoom (a cubic, else quadratic, else
+    bisection step) into it.  A search that reaches the step bound, or whose
+    interval falls below 1e-5 with a stepsize of sufficient decrease known,
+    fails and returns that safe stepsize where there is one (or where the
+    last value was not finite), else the last stepsize tried.
+
+    Returns ``(stepsize, steps, decrease_error, curvature_error)``, optax's
+    ``ZoomLinesearchInfo``."""
+    f = type(value_init)
+    zero, inf = f(0.0), f(np.inf)
+
+    def errors(stepsize, value, slope):
+        dec = value - value_init - _SLOPE_RTOL * stepsize * slope_init
+        approx = slope - (2 * _SLOPE_RTOL - 1.0) * slope_init
+        delta = value - value_init - _APPROX_DEC_RTOL * np.abs(value_init)
+        dec = np.maximum(np.minimum(np.maximum(approx, delta), dec), zero)
+        curv = np.maximum(np.abs(slope) - _CURV_RTOL * np.abs(slope_init),
+                          zero)
+        return (inf if np.isnan(dec) else dec,
+                inf if np.isnan(curv) else curv)
+
+    count, stepsize, value, slope = 0, zero, value_init, slope_init
+    dec_err = curv_err = inf
+    interval_found = done = failed = False
+    low = high = cubic_ref = zero
+    value_low = value_high = value_cubic_ref = value_init
+    slope_low = slope_high = slope_init
+    safe_stepsize, safe_value = zero, value_init
+    with np.errstate(all="ignore"):
+        while not (done or failed):
+            if not interval_found:
+                new = f(1.0) if count == 0 else f(_INCREASE_FACTOR * stepsize)
+                v, s = evaluate(new)
+                dec_err, curv_err = errors(new, v, s)
+                if dec_err <= _TOL:
+                    safe_stepsize, safe_value = new, v
+                set_high = dec_err > 0.0 or (v >= value and count > 0)
+                set_low = s >= 0.0 and not set_high
+                if set_low:
+                    low, value_low, slope_low = new, v, s
+                    high, value_high, slope_high = stepsize, value, slope
+                else:
+                    low, value_low, slope_low = stepsize, value, slope
+                    high, value_high, slope_high = new, v, s
+                done = max(dec_err, curv_err) <= _TOL
+                interval_found = set_high or set_low or done
+                failed = count + 1 >= LBFGS_LINESEARCH_STEPS and not done
+                cubic_ref, value_cubic_ref = low, value_low
+            else:
+                delta = np.abs(high - low)
+                left, right = np.minimum(high, low), np.maximum(high, low)
+                too_small = delta <= _STEPSIZE_PRECISION
+                cubic = _cubicmin(low, value_low, slope_low, high, value_high,
+                                  cubic_ref, value_cubic_ref)
+                quad = _quadmin(low, value_low, slope_low, high, value_high)
+                if left + 0.2 * delta < cubic < right - 0.2 * delta:
+                    new = cubic
+                elif left + 0.1 * delta < quad < right - 0.1 * delta:
+                    new = quad
+                else:
+                    new = (low + high) / 2.0
+                v, s = evaluate(new)
+                dec_err, curv_err = errors(new, v, s)
+                if dec_err <= _TOL and v < safe_value:
+                    safe_stepsize, safe_value = new, v
+                done = max(dec_err, curv_err) <= _TOL
+                high_to_new = dec_err > 0.0 or v >= value_low
+                high_to_low = s * (high - low) >= 0.0 and not high_to_new
+                if high_to_new or high_to_low:
+                    cubic_ref, value_cubic_ref = high, value_high
+                else:
+                    cubic_ref, value_cubic_ref = low, value_low
+                if high_to_new:
+                    high, value_high, slope_high = new, v, s
+                elif high_to_low:
+                    high, value_high, slope_high = low, value_low, slope_low
+                if not high_to_new:
+                    low, value_low, slope_low = new, v, s
+                failed = ((count + 1 >= LBFGS_LINESEARCH_STEPS
+                           or (too_small and safe_stepsize > 0.0))
+                          and not done)
+            count += 1
+            stepsize, value, slope = new, v, s
+            if failed and (safe_stepsize > 0.0 or np.isinf(dec_err)):
+                stepsize, value = safe_stepsize, safe_value
+    return stepsize, count, dec_err, curv_err
+
+
+class LBFGS(torch.optim.Optimizer):
+    """`optax.lbfgs()`'s rule: `scale_by_lbfgs(memory_size,
+    scale_init_precond)`, `scale(-1)` and `scale_by_zoom_linesearch(
+    max_linesearch_steps=20, initial_guess_strategy="one")`, one update a
+    step.
+
+    ``step(closure)``: ``closure()`` evaluates the loss at the parameters as
+    they are and sets their gradients.  Its first call gives the step's
+    value and gradient g.  The memory then takes the pair (parameters minus
+    the previous step's, g minus the previous gradient) at slot
+    ``(count - 1) % memory_size`` with weight 1/<dg, dw> (0 where that is
+    0; nothing at the first step), and the two-loop recursion from slot
+    ``count % memory_size`` preconditions g with the initial scale
+    <dg, dw>/<dg, dg> (1 where dg = 0; min(1, 1/||g||) at the first step).
+    The direction u is minus that; `zoom_linesearch` picks the stepsize,
+    each of its steps one more call of ``closure`` at w + stepsize u, and
+    the parameters end at w + stepsize u.  For complex parameters every
+    inner product is the real part of <x, y> (the gradient is torch's, the
+    conjugate of `jax.grad`'s, which the JAX package's trainer conjugates
+    before optax sees it).  The recursion runs on the parameters laid end
+    to end as one real vector (`_flat`), a dot product a memory slot.
+
+    The state holds, a parameter, the previous parameters and gradient and
+    the stacked ``(memory_size, *shape)`` differences; with the first
+    parameter, the count, the ``(memory_size,)`` weights, the last stepsize
+    and the last search's steps and errors (``num_linesearch_steps``,
+    ``decrease_error``, ``curvature_error``).  The weights, the stepsize and
+    every scalar of the line search are in the parameters' real dtype,
+    which is optax's arithmetic with JAX's x64 off; with it on, optax keeps
+    the weights and some scalars of the search in float64 also for float32
+    parameters.  The line search reads two scalars (value and slope) on the
+    host a call, so its steps run eagerly, also on the card.
+
+    ``step(closure, member=m)`` (`solve_ensemble`) treats the parameters'
+    leading axis as members: it steps member m alone, with its own memory,
+    count and line search, reading the gradients' slice m; the state then
+    holds a leading member axis (the stacked differences after the memory
+    axis)."""
+
+    def __init__(self, params, memory_size: int = 10,
+                 scale_init_precond: bool = True):
+        if memory_size < 1:
+            raise ValueError("memory_size must be >= 1")
+        super().__init__(params, dict(memory_size=memory_size,
+                                      scale_init_precond=scale_init_precond))
+        self._params = [p for g in self.param_groups for p in g["params"]]
+
+    def _init_state(self, member) -> None:
+        p0 = self._params[0]
+        m = self.param_groups[0]["memory_size"]
+        lead = () if member is None else (p0.shape[0],)
+        real = p0.dtype.to_real()
+        for p in self._params:
+            self.state[p].update(
+                params=torch.zeros_like(p), updates=torch.zeros_like(p),
+                diff_params_memory=p.new_zeros((m,) + p.shape),
+                diff_updates_memory=p.new_zeros((m,) + p.shape))
+        self.state[p0].update(
+            count=torch.zeros(lead, dtype=torch.int64, device=p0.device),
+            weights_memory=torch.zeros(lead + (m,), dtype=real,
+                                       device=p0.device),
+            learning_rate=torch.ones(lead, dtype=real, device=p0.device),
+            num_linesearch_steps=torch.zeros(lead, dtype=torch.int64,
+                                             device=p0.device),
+            decrease_error=torch.full(lead, math.inf, dtype=real,
+                                      device=p0.device),
+            curvature_error=torch.full(lead, math.inf, dtype=real,
+                                       device=p0.device))
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        # torch casts every state tensor of a float parameter to its dtype
+        st = self.state[self._params[0]]
+        for k in ("count", "num_linesearch_steps"):
+            if k in st:
+                st[k] = st[k].to(torch.int64)
+
+    @torch.no_grad()
+    def step(self, closure=None, member: int | None = None):
+        if closure is None:
+            raise ValueError("LBFGS needs a closure that evaluates the loss")
+        closure = torch.enable_grad()(closure)
+        if not self.state[self._params[0]]:
+            self._init_state(member)
+        memory_size = self.param_groups[0]["memory_size"]
+        scale_init = self.param_groups[0]["scale_init_precond"]
+        if member is None:
+            at, mem = (lambda t: t), (lambda t: t)
+        else:
+            at, mem = (lambda t: t[member]), (lambda t: t[:, member])
+        params = [at(p) for p in self._params]
+        per = [self.state[p] for p in self._params]
+        glob = {k: at(v) for k, v in per[0].items()
+                if k in ("count", "weights_memory", "learning_rate",
+                         "num_linesearch_steps", "decrease_error",
+                         "curvature_error")}
+        prev_params = [at(s["params"]) for s in per]
+        prev_updates = [at(s["updates"]) for s in per]
+        dw_mem = [mem(s["diff_params_memory"]) for s in per]
+        du_mem = [mem(s["diff_updates_memory"]) for s in per]
+
+        def grads():
+            return [torch.zeros_like(q) if p.grad is None else at(p.grad)
+                    for p, q in zip(self._params, params)]
+
+        loss = closure()
+        g = _flat(grads())
+        count = int(glob["count"])
+        idx, prev = count % memory_size, (count - 1) % memory_size
+        weights = glob["weights_memory"]
+        if count > 0:
+            dw = _flat(params) - _flat(prev_params)
+            du = g - _flat(prev_updates)
+            curv = torch.dot(du, dw)
+            weights[prev] = torch.where(curv == 0.0, 0.0, 1.0 / curv)
+        else:
+            dw = du = torch.zeros_like(g)
+            weights[prev] = 0.0
+        for buf, d in zip(dw_mem, _leaves(dw, params)):
+            buf[prev].copy_(d)
+        for buf, d in zip(du_mem, _leaves(du, params)):
+            buf[prev].copy_(d)
+        if not scale_init:
+            gamma = 1.0
+        elif count > 0:
+            den = torch.dot(du, du)
+            gamma = torch.where(den > 0.0, torch.dot(du, dw) / den, 1.0)
+        else:
+            gamma = torch.clamp(1.0 / torch.sqrt(torch.dot(g, g)), max=1.0)
+        # the two-loop recursion, newest pair first, then oldest first
+        order = [(idx + j) % memory_size for j in range(memory_size)]
+        dws, dus = _flat_memory(dw_mem), _flat_memory(du_mem)
+        vec, alphas = g, {}
+        for i in reversed(order):
+            alphas[i] = weights[i] * torch.dot(dws[i], vec)
+            vec = vec + (-alphas[i]) * dus[i]
+        vec = gamma * vec
+        for i in order:
+            beta = weights[i] * torch.dot(dus[i], vec)
+            vec = vec + (alphas[i] - beta) * dws[i]
+        u = -vec
+        start = _flat(params)
+        for q, p in zip(prev_params, params):
+            q.copy_(p)
+        for q, x in zip(prev_updates, _leaves(g, params)):
+            q.copy_(x)
+        glob["count"].add_(1)
+
+        real = weights.dtype
+        host = torch.stack([loss.detach().to(real),
+                            torch.dot(u, g)]).cpu().numpy()
+
+        def move(stepsize):
+            for p, x in zip(params, _leaves(start + float(stepsize) * u,
+                                            params)):
+                p.copy_(x)
+
+        def evaluate(stepsize):
+            move(stepsize)
+            value = closure()
+            pair = torch.stack([value.detach().to(real),
+                                torch.dot(_flat(grads()), u)])
+            return tuple(pair.cpu().numpy())
+
+        stepsize, steps, dec, curv = zoom_linesearch(host[0], host[1],
+                                                     evaluate)
+        move(stepsize)
+        glob["learning_rate"].fill_(float(stepsize))
+        glob["num_linesearch_steps"].fill_(steps)
+        glob["decrease_error"].fill_(float(dec))
+        glob["curvature_error"].fill_(float(curv))
+        return loss
+
+
+def lbfgs(memory_size: int = 10, scale_init_precond: bool = True
+          ) -> Callable:
+    """Optimizer factory: `LBFGS`, `optax.lbfgs()`'s rule (its two-loop
+    recursion and zoom line search) with its defaults.  Its steps run
+    eagerly, also on the card (see the module note)."""
+    return lambda params: LBFGS(params, memory_size=memory_size,
+                                scale_init_precond=scale_init_precond)
 
 
 @dataclass
@@ -197,10 +526,15 @@ class TrainStep:
         return rest[0], dict(zip(keys, rest[1:]))
 
     @staticmethod
+    def _slice(tree, m):
+        """Member ``m`` of stacked parameters or state."""
+        return {k: v[m] for k, v in tree.items()}
+
+    @staticmethod
     def needs_closure(opt) -> bool:
         """Whether ``opt`` evaluates the loss itself through a closure (and
         so reads the host, and runs eagerly also on the card)."""
-        return isinstance(opt, torch.optim.LBFGS)
+        return isinstance(opt, (LBFGS, torch.optim.LBFGS))
 
     def init(self, params: dict, ada_state: dict, iteration: int = 0):
         """The carry ``(theta, optimizer, ada_state, iteration)``: trainable
@@ -255,14 +589,21 @@ class TrainStep:
             for k, v in new.items():
                 ada_state[k].copy_(v)
 
-    def _run_closure(self, theta, opt, ada_state, generator, reweight):
+    def _run_closure(self, theta, opt, ada_state, generator, reweight,
+                     member=None):
         """L-BFGS: every evaluation of its line search draws the step's
         points again (the generator is rewound to the step's start, as the
         JAX package's ``value_fn`` reuses the step's key) and sees the
-        weights from before this step's reweighting."""
+        weights from before this step's reweighting.  ``member``: step that
+        member of stacked parameters alone (`LBFGS.step`'s ``member``)."""
         start = generator.get_state() if generator is not None else None
-        weights = ({k: v.clone() for k, v in ada_state.items()} if reweight
-                   else ada_state)
+        kw = {} if member is None else {"member": member}
+
+        def at(tree):
+            return tree if member is None else self._slice(tree, member)
+
+        weights = ({k: v.clone() for k, v in at(ada_state).items()}
+                   if reweight else at(ada_state))
         first = []
         group = self._data_group()
 
@@ -271,8 +612,8 @@ class TrainStep:
                 generator.set_state(start)
             opt.zero_grad(set_to_none=True)
             with matmul_precision(self.precision):
-                loss, aux = self.loss_fn(theta, {"generator": generator,
-                                                 "adaptive": weights})
+                loss, aux = self.loss_fn(at(theta), {"generator": generator,
+                                                     "adaptive": weights})
                 loss.backward()
                 loss = loss.detach()
                 aux = {k: v.detach() for k, v in aux.items()}
@@ -281,11 +622,11 @@ class TrainStep:
                 if not first:
                     first.append((loss, aux))
                     if reweight:
-                        self._reweight(theta, ada_state, first[0][1],
+                        self._reweight(at(theta), at(ada_state), first[0][1],
                                        generator)
             return loss
 
-        opt.step(closure)
+        opt.step(closure, **kw)
         return first[0]
 
     def __call__(self, carry, generator: torch.Generator):
@@ -631,8 +972,9 @@ def solve_hybrid(prob, *, adam_iters: int = 2000, lbfgs_iters: int = 1000,
     (docs/src/tutorials/low_level.md).  Adam escapes the rough early
     landscape; L-BFGS's curvature steps polish to low loss in far fewer
     iterations.  The Adam stage replays captured CUDA graphs on the card;
-    the L-BFGS stage (`lbfgs`) runs its steps eagerly, since its line
-    search reads the loss on the host.
+    the L-BFGS stage (`lbfgs`, optax.lbfgs()'s rule as in the JAX package)
+    runs its steps eagerly, since its line search reads the loss on the
+    host.
 
     Works best with deterministic strategies (Grid, Quadrature) in the
     L-BFGS stage: the line search assumes a fixed objective.  Returns a

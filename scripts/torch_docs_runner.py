@@ -24,6 +24,13 @@ on the CPU, `chip_smoke.py` phase 35 on the card) and ``full`` (no caps,
 the pages' own budgets).  `CPU_CAPS` caps a few more keywords on the CPU
 only, where a page at `CAPS` takes more than a few seconds.
 
+Variants of a page (its accuracy against the JAX page's, ROADMAP §3 F1):
+``--x64`` runs it in float64 (torch's default dtype, and the page's own
+``torch.float32`` written as ``torch.float64``); ``--seed S`` passes
+``seed=S`` to every `SEEDED` entry point of the port's top level that the
+page calls without one, so its initial parameters (and a stochastic
+strategy's points) come from another draw.
+
 Each page runs in a fresh temporary directory (pages that write
 checkpoints or exports write there), and what a page changes of the
 process's global state is put back after it: torch's default dtype, the
@@ -35,7 +42,7 @@ Run on the card, one page or all of them, printing one JSON line a page
 the replays of captured graphs):
 
     python scripts/torch_docs_runner.py [--mode capped|full]
-        [--device cuda|cpu] [--out FILE] [PAGE ...]
+        [--device cuda|cpu] [--x64] [--seed S] [--out FILE] [PAGE ...]
 
 PAGE is a path relative to ``docs/torch`` (``tutorials/ode.md``).
 """
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -84,6 +92,11 @@ CPU_CAPS = {
     "cg_iters": 5,
     "n_leapfrog": 5,
 }
+
+
+# the port's entry points whose ``seed`` draws a page's initial parameters
+# or points (`--seed`)
+SEEDED = ("PhysicsInformedNN", "NNODE", "PINOPDE", "solve", "solve_ode")
 
 
 def pages() -> list[str]:
@@ -131,9 +144,10 @@ def downscale(code: str, caps: dict) -> str:
     return pat.sub(cap, code)
 
 
-def prepare(code: str, mode: str, device: str) -> str:
+def prepare(code: str, mode: str, device: str, x64: bool = False) -> str:
     """The block as it runs: the caps of ``mode`` applied, the ``DEVICE``
-    binding rewritten for ``device``."""
+    binding rewritten for ``device``, and with ``x64`` its float32 dtypes
+    written as float64."""
     if mode == "capped":
         code = downscale(code, CAPS)
         if torch.device(device).type == "cpu":
@@ -142,7 +156,34 @@ def prepare(code: str, mode: str, device: str) -> str:
         raise ValueError(f"unknown mode {mode!r}")
     if device != "cuda":
         code = _DEVICE.sub(f"DEVICE = {device!r}", code)
+    if x64:
+        code = code.replace("torch.float32", "torch.float64")
     return code
+
+
+@contextlib.contextmanager
+def seeded(seed: int | None):
+    """The port's `SEEDED` entry points with ``seed=seed`` wherever a call
+    passes none (nothing for None)."""
+    import neuralpde_tpu_torch as npde
+
+    saved = {name: getattr(npde, name) for name in SEEDED}
+
+    def with_seed(f):
+        @functools.wraps(f)
+        def call(*args, **kwargs):
+            kwargs.setdefault("seed", seed)
+            return f(*args, **kwargs)
+        return call
+
+    if seed is not None:
+        for name, f in saved.items():
+            setattr(npde, name, with_seed(f))
+    try:
+        yield
+    finally:
+        for name, f in saved.items():
+            setattr(npde, name, f)
 
 
 @contextlib.contextmanager
@@ -200,8 +241,10 @@ class _Tee(io.TextIOBase):
 
 
 def run_page(page: str, *, mode: str = "capped", device: str = "cuda",
-             echo: bool = False) -> dict:
-    """Run every block of ``page`` that runs in ``mode`` on ``device``.
+             echo: bool = False, x64: bool = False,
+             seed: int | None = None) -> dict:
+    """Run every block of ``page`` that runs in ``mode`` on ``device``
+    (in float64 with ``x64``; ``seed``: `seeded`).
 
     Returns ``{"page", "mode", "device", "blocks", "skipped", "seconds",
     "block_seconds", "printed": [lines], "eager_launches",
@@ -220,8 +263,10 @@ def run_page(page: str, *, mode: str = "capped", device: str = "cuda",
     tj.reset_launch_counts()
     replayed_before = tj.replayed_counts()
     t0 = time.perf_counter()
-    with restored_state(), tempfile.TemporaryDirectory() as tmp:
+    with restored_state(), seeded(seed), tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
+        if x64:
+            torch.set_default_dtype(torch.float64)
         if ROOT not in sys.path:
             sys.path.insert(0, ROOT)   # a page's imports of the port
         try:
@@ -229,7 +274,7 @@ def run_page(page: str, *, mode: str = "capped", device: str = "cuda",
                 if not runs(block, mode, device):
                     skipped += 1
                     continue
-                code = prepare(block, mode, device)
+                code = prepare(block, mode, device, x64)
                 tb = time.perf_counter()
                 try:
                     with contextlib.redirect_stdout(out):
@@ -254,7 +299,7 @@ def run_page(page: str, *, mode: str = "capped", device: str = "cuda",
     replayed = {k: n - replayed_before[k]
                 for k, n in tj.replayed_counts().items()}
     return {"page": page, "mode": mode, "device": str(device),
-            "blocks": ran, "skipped": skipped, "seconds": seconds,
+            "x64": x64, "seed": seed, "blocks": ran, "skipped": skipped, "seconds": seconds,
             "block_seconds": block_seconds,
             "printed": printed,
             "eager_launches": eager, "replayed_launches": replayed,
@@ -272,6 +317,11 @@ def main(argv=None) -> int:
                     "(default: every page)")
     ap.add_argument("--mode", default="capped", choices=["capped", "full"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--x64", action="store_true",
+                    help="run the pages in float64")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the seed of the entry points a page seeds by "
+                         "default (SEEDED)")
     ap.add_argument("--out", default=None,
                     help="append each page's JSON line to this file too")
     args = ap.parse_args(argv)
@@ -283,7 +333,7 @@ def main(argv=None) -> int:
     for page in args.pages or pages():
         try:
             res = run_page(page, mode=args.mode, device=args.device,
-                           echo=True)
+                           echo=True, x64=args.x64, seed=args.seed)
         except PageError as e:
             print(str(e), file=sys.stderr)
             res = {"page": page, "mode": args.mode, "error": str(e)[:2000]}

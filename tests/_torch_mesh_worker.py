@@ -236,6 +236,38 @@ def reweighting(tpkg, M, mesh, out_dir):
     return sharded, run(None)
 
 
+def lbfgs(tpkg, M, mesh):
+    """`solve` with `npde.lbfgs()` under the mesh and without it: every line
+    search evaluation sums the ranks' shares, so every rank takes the
+    stepsizes of the run without a mesh."""
+    from _torch_parity import poisson_2d
+
+    def run(m):
+        prob = tpkg.discretize(poisson_2d(tpkg), tpkg.PhysicsInformedNN(
+            tpkg.mlp([2, 8, 1], dtype=F64), tpkg.GridTraining(1 / 15),
+            derivative="jet", dtype=F64, device="cpu"))
+        counts = []
+
+        def factory(params):
+            opt = tpkg.lbfgs()(params)
+            step = opt.step
+
+            def counted(closure):
+                loss = step(closure)
+                counts.append(int(opt.state[opt._params[0]]
+                                  ["num_linesearch_steps"]))
+                return loss
+            opt.step = counted
+            return opt
+
+        with M.use_mesh(m) if m is not None else M.no_mesh():
+            res = tpkg.solve(prob, factory, maxiters=4)
+        return {"params": {k: _np(v) for k, v in res.u.items()},
+                "loss": res.objective, "counts": counts}
+
+    return run(mesh), run(None)
+
+
 def ensembles(tpkg, M, mesh):
     from _torch_parity import poisson_2d
 
@@ -317,6 +349,7 @@ def mesh_mode(tpkg, inputs, rank, out_dir):
     mesh2 = M.make_mesh_2d(2, 2, device="cpu")
     res["tp"] = tensor_parallel(tpkg, M, inputs, mesh2)
     res["reweighting"] = reweighting(tpkg, M, mesh, out_dir)
+    res["lbfgs"] = lbfgs(tpkg, M, mesh)
     res["ensembles"] = ensembles(tpkg, M, mesh)
     res["chains"] = chains(mesh)
     return res

@@ -360,12 +360,34 @@ def test_a_step_that_cannot_be_captured_raises(cuda):
 
 @pytest.mark.cuda
 def test_lbfgs_steps_run_eagerly_on_the_card(cuda):
+    """`npde.lbfgs()` (optax's rule, `train.LBFGS`): its steps run eagerly
+    on the card, descend, and keep their state there; a user's
+    `torch.optim.LBFGS` factory still trains through `solve`."""
     import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import LBFGS
 
     prob = _dense_problem(cuda, npde.GridTraining(0.1))
     res = npde.solve(prob, npde.lbfgs(), maxiters=5)
     assert res.aux["cuda_graph"] == {"captures": 0, "capture_seconds": 0.0,
                                      "replays": 0}
+    assert res.history[-1] < res.history[0]
+    lf = prob.pinnrep.loss_functions
+    step = npde.make_step(prob.loss, npde.lbfgs(), prob.pinnrep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions)
+    carry = step.init(prob.init_params, prob.pinnrep.adaloss.init_state(
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), torch.float32,
+        cuda))
+    opt = carry[1]
+    assert isinstance(opt, LBFGS)
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):
+        carry, _ = step(carry, generator)
+    st = opt.state[opt._params[0]]
+    assert int(st["count"]) == 3 and int(st["num_linesearch_steps"]) >= 1
+    assert all(v.device.type == "cuda" for v in st.values())
+    res = npde.solve(prob, lambda ps: torch.optim.LBFGS(
+        list(ps), max_iter=1, max_eval=21, line_search_fn="strong_wolfe"),
+        maxiters=5)
     assert res.history[-1] < res.history[0]
 
 

@@ -182,7 +182,8 @@ def test_callback_abstol_and_refusals():
     with pytest.raises(TypeError, match="Mesh"):
         tpkg.solve_ensemble(_prob(), mesh=object())
     with pytest.raises(ValueError, match="L-BFGS"):
-        tpkg.solve_ensemble(_prob(), tpkg.lbfgs(), maxiters=1, n_ensemble=2)
+        tpkg.solve_ensemble(_prob(), lambda ps: torch.optim.LBFGS(list(ps)),
+                            maxiters=1, n_ensemble=2)
     bare = tpkg.solvers.ode._SimpleProblem(lambda th, g: 0.0, {})
     with pytest.raises(ValueError, match="member_init"):
         tpkg.solve_ensemble(bare)

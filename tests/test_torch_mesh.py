@@ -487,6 +487,20 @@ def test_solve_reweighting_by_component_gradients_under_the_mesh(ranks):
         assert rel_err(sharded["loss"], plain["loss"]) < 1e-10
 
 
+def test_lbfgs_under_the_mesh_takes_the_steps_of_the_run_without(ranks):
+    """Four `npde.lbfgs()` steps: each line-search evaluation sums the
+    ranks' shares, so every rank's line searches take as many steps as the
+    run without a mesh, and end at its parameters."""
+    for out in ranks.results():
+        sharded, plain = out["lbfgs"]
+        assert sharded["counts"] == plain["counts"]
+        assert len(plain["counts"]) == 4
+        assert max(plain["counts"]) > 1
+        for k, v in plain["params"].items():
+            assert rel_err(sharded["params"][k], v) < 1e-10, k
+        assert rel_err(sharded["loss"], plain["loss"]) < 1e-10
+
+
 def test_ensemble_over_mesh_matches_unsharded(ranks):
     """8 members, 2 a rank: every rank returns all members, bit-equal to
     the run without a mesh; a member count that does not divide raises."""
