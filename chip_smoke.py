@@ -26,7 +26,10 @@ lines, their seconds and the memory left allocated, and raise on failure:
    float32 and float64, and both times at the dense path's shape; after
    each later phase every shape a kernel was launched at that was not
    checked yet is held to the plain version the same way (the docs pages
-   of phase 35 launch at many small shapes);
+   of phase 35 launch at many small shapes); the L-BFGS line search's
+   `zoom_step` against `zoom_transition` on every step of real searches
+   and on edge values, bit for bit in float32 and float64, and its time a
+   launch beside the plain transition's and an empty kernel's;
 4. card vs CPU: one loss and gradient of the dense bench problem at batch
    32,768, same parameters and points, on the card and the CPU (plain);
 5. dense main path: one warm-up step and 20 timed steps through
@@ -51,7 +54,8 @@ lines, their seconds and the memory left allocated, and raise on failure:
     (`CausalTraining`, batch 8192, five-layer net of width 64) for 10,000
     steps in blocks of 500 (the recipe's stage runs 333,000);
 14. to accuracy: `time_to_l2_hard`, then `time_to_l2_hybrid` (Adam, then
-    L-BFGS, whose steps run eagerly), each to RMS < 1e-3 within 120 s;
+    L-BFGS, whose steps replay a captured graph), each to RMS < 1e-3
+    within 120 s;
 15. adaptive and sampling: 300 steps of bench's Poisson problem at batch
     8192 with each of the five adaptive losses, with `QuasiRandomTraining`
     (lhs, sobol, lattice) and with `ResidualAdaptiveTraining`; and 20 steps
@@ -158,10 +162,13 @@ lines, their seconds and the memory left allocated, and raise on failure:
     an inf fails the phase, and so does memory left allocated beyond
     phase 34's level;
 36. L-BFGS (`npde.lbfgs()`, optax.lbfgs()'s rule): the w64 Poisson
-    `GridTraining(1/127)` jet problem for 10 float64 steps on the card and
-    on the CPU from the same parameters (parameters within a stated
+    `GridTraining(1/127)` jet problem for 10 float64 steps on the card
+    (eagerly, and captured with the line-search trials as IF nodes) and on
+    the CPU from the same parameters (parameters within a stated
     tolerance, line-search counts equal), then the hybrid recipe's L-BFGS
-    ms a step in turns against `torch.optim.LBFGS` passed as a factory.
+    ms a step in turns: captured, the same steps eagerly, and
+    `torch.optim.LBFGS` passed as a factory (evaluations a step, IF
+    bodies entered and skipped, capture seconds, peak memory).
 
 Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 36 train through
 `solve`, which on the card runs each kind of step once as it is, then
@@ -177,7 +184,11 @@ counted from 0 just
 before its solve, sampler or page and read just after, with the forward
 and backward kernels required wherever the path takes second derivatives
 by Taylor mode) and the launches of every replay in those phases; a
-`[launches]` line gives the two parts per phase. Every other graph phase,
+`[launches]` line gives the two parts per phase.  `zoom_step` is counted
+from 0 at each phase's start and read at its end; a replay of a captured
+L-BFGS step launches it once a trial body that ran, which the solve
+reports from the device's count when it ends.  Every kernel of the line
+must have launched. Every other graph phase,
 like phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart;
 phases 27 to 30 and 32 print theirs, which must be 0. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -475,7 +486,122 @@ def phase_kernels(card: str) -> list[dict]:
                  replaces="neuralpde_tpu/ops/derivatives.py:84",
                  **_bound(name, KERNEL_SHAPE, torch.float32),
                  library_ms=None, **r)
-            for name, r in results.items()]
+            for name, r in results.items()] + [_check_zoom(card)]
+
+
+def _launch_floor_ms() -> float:
+    """Device time of an empty kernel launched through the kernels'
+    library: the least any launch takes."""
+    import ctypes
+
+    from neuralpde_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    lib.neuralpde_empty_launch.argtypes = [ctypes.c_void_p]
+    return _device_ms(lambda: _build.check(
+        lib, lib.neuralpde_empty_launch(
+            torch.cuda.current_stream().cuda_stream), "empty launch"),
+        iters=ZOOM_TIMED)
+
+
+def _check_zoom(card: str) -> dict:
+    """`zoom_step` against `zoom_transition` on every step of real searches
+    and on edge values (`transition_cases`), float32 and float64, bit for
+    bit (tolerance 0); then, in float32, the kernel's device time a launch
+    against the plain transition's host time on CPU tensors (the path it
+    replaces reads the value and slope on the host and steps there)."""
+    from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
+
+    err = 0.0
+    for dtype, tdt in ((np.float32, torch.float32),
+                       (np.float64, torch.float64)):
+        cases = lz.transition_cases(dtype, searches=ZOOM_SEARCHES)
+        n = len(cases)
+        state = torch.tensor(np.stack([c[0] for c in cases]), device="cuda")
+        value, slope = (torch.tensor(np.array([c[i] for c in cases],
+                                              dtype=dtype), device="cuda")
+                        for i in (1, 2))
+        flag = torch.zeros(n, dtype=torch.bool, device="cuda")
+        info = [torch.full((n,), -1, dtype=d, device="cuda")
+                for d in (tdt, torch.int64, tdt, tdt)]
+        for i in range(n):
+            lz.zoom_step_cuda(state[i], value[i], slope[i], flag[i],
+                              *(t[i] for t in info))
+        torch.cuda.synchronize()
+        got, flags = state.cpu().numpy(), flag.cpu().numpy()
+        steps = info[1].cpu().numpy()
+        rates = [t.cpu().numpy() for t in (info[0], info[2], info[3])]
+        bad = 0
+        for i, case in enumerate(cases):
+            want, _, searching = lz.zoom_transition(*case)
+            same = got[i].tobytes() == want.tobytes() and flags[i] == searching
+            if same and not searching:
+                same = (steps[i] == int(want[lz.COUNT]) and all(
+                    r[i].tobytes() == want[f].tobytes() for r, f in zip(
+                        rates, (lz.STEPSIZE, lz.DEC_ERR, lz.CURV_ERR))))
+            if not same:
+                bad += 1
+                diff = np.abs(got[i].astype(np.float64) - want)
+                err = max(err, float(np.nanmax(np.where(
+                    np.isnan(diff), np.inf, diff))))
+        print(f"[kernel] zoom_step {np.dtype(dtype).name}: {n} transitions "
+              f"({ZOOM_SEARCHES} searches and their edge values) "
+              f"{n - bad} bit-equal to zoom_transition (tolerance: bit for "
+              f"bit)")
+        if bad:
+            raise AssertionError(f"zoom_step {np.dtype(dtype).name}: {bad} "
+                                 f"transitions differ from the plain version")
+    cases = lz.transition_cases(np.float32, searches=6)
+    s0, v0, d0 = cases[len(cases) // 2]
+    dev = [torch.tensor(x, device="cuda") for x in (s0, v0, d0)]
+    host = [torch.tensor(x) for x in (s0, v0, d0)]
+
+    def scratch(device):
+        return [torch.zeros((), dtype=torch.bool, device=device)] + [
+            torch.zeros((), dtype=d, device=device)
+            for d in (torch.float32, torch.int64, torch.float32,
+                      torch.float32)]
+
+    dev_out, host_out = scratch("cuda"), scratch("cpu")
+
+    def kernel():
+        lz.zoom_step_cuda(*dev, *dev_out)
+
+    def plain():
+        lz.zoom_step_reference(*host, *host_out)
+
+    ms = _device_ms(kernel, iters=ZOOM_TIMED)
+    call_ms = _event_ms(kernel, iters=ZOOM_TIMED)
+    plain()
+    t0 = time.perf_counter()
+    for _ in range(ZOOM_TIMED):
+        plain()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / ZOOM_TIMED
+    floor = _launch_floor_ms()
+    bound = _zoom_bound()
+    print(f"[kernel] zoom_step float32: device time {ms:.5f} ms a launch, "
+          f"{call_ms:.5f} ms a call with its launch; the plain transition "
+          f"{plain_ms:.5f} ms a call on the host; an empty kernel "
+          f"{floor:.5f} ms (the floor of a launch-bound kernel); bound by "
+          f"{bound['bound_by']} {bound['bound_ms']:.3e} ms; {card}")
+    return dict(name="zoom_step", route="cuda",
+                source="neuralpde_tpu_torch/csrc/lbfgs_zoom.cu",
+                replaces="neuralpde_tpu/train.py:95", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=None, **bound)
+
+
+def _zoom_bound() -> dict:
+    """The least time of one `zoom_step` in float32 on the card: its state,
+    value and slope read once, state, flag and info written once, at the
+    memory rate, or its operations at the float32 rate, whichever is
+    longer (both far below a launch)."""
+    from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
+
+    by_bytes = ((lz.STATE_SIZE + 2) * 4 + lz.STATE_SIZE * 4 + 1 + 3 * 4 + 8
+                ) / H100_BYTES_PER_S
+    by_ops = ZOOM_OPS / H100_F32_FLOPS
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def check_launched_shapes(number: int, checked: set, kernels: list[dict],
@@ -496,8 +622,9 @@ def check_launched_shapes(number: int, checked: set, kernels: list[dict],
                            tag=f"[phase {number}]")
         checked.add(shape)
     for k in kernels:
-        k["max_abs_err"] = max(k["max_abs_err"],
-                               results[k["name"]]["max_abs_err"])
+        if k["name"] in results:
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   results[k["name"]]["max_abs_err"])
     print(f"[kernel] phase {number}: {len(new)} new launched shape(s) held "
           f"to the plain versions: {new}")
 
@@ -508,6 +635,11 @@ KERNEL_IO = {"tanh_jet2_forward": (3, 3, 10), "tanh_jet2_backward": (6, 3, 30),
              "tanh_jet2_jvp": (6, 3, 30)}
 H100_BYTES_PER_S = 3.35e12      # HBM3, NVIDIA's data sheet (SXM, 700 W)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores, the same
+ZOOM_SEARCHES = 100             # searches of phase 3's zoom_step check
+ZOOM_TIMED = 200                # timed launches of zoom_step
+# float operations of one zoom transition at most (the errors, the phase's
+# updates, a cubic and a quadratic step), counted from the plain version
+ZOOM_OPS = 80
 
 
 def _bound(name: str, shape, dtype) -> dict:
@@ -1109,7 +1241,8 @@ def phase_to_accuracy(card: str) -> None:
         r = fn(max_seconds=TO_L2_CAP_S)
         counts = tj.launch_counts()
         extra = (f"; Adam stage {r['adam_seconds']:.2f} s; npde.lbfgs() "
-                 f"steps run eagerly: {r['lbfgs_ms_per_step']:.2f} ms/step"
+                 f"steps replayed from a captured graph (a capture a "
+                 f"500-step solve): {r['lbfgs_ms_per_step']:.2f} ms/step"
                  if name == "hybrid" else "")
         print(f"[to-accuracy] {name}: RMS {r['rms']:.3e} after "
               f"{r['iterations']} iterations, "
@@ -3544,7 +3677,7 @@ def phase_examples(card: str) -> dict:
     print(f"[examples] examples/kuramoto_sivashinsky.py: mlp([2,32,32,1]) "
           f"on 51 x 11 nodes, jet to order 4, f32: Adam 3000 steps "
           f"{out['stage_s'][0]:.2f} s (rel L2 {out['per_stage'][0][1]:.4e}), "
-          f"L-BFGS 600 eager steps {out['stage_s'][1]:.2f} s "
+          f"L-BFGS 600 captured steps {out['stage_s'][1]:.2f} s "
           f"({1e3 * out['stage_s'][1] / 600:.3f} ms/step); loss "
           f"{out['loss']:.4e}; rel L2 {out['rel_l2']:.4e} (limit {KS_LIMIT}, "
           f"the JAX example's on a CPU); launches counted {counts}; {card}")
@@ -3614,14 +3747,18 @@ LBFGS_STEPS = 10                # phase 36: float64 steps, card against CPU
 LBFGS_CARD_VS_CPU_RTOL = 1e-8
 LBFGS_GRID = 1.0 / 127          # the hybrid recipe's L-BFGS grid
 LBFGS_WARM_ADAM = 1_000         # Adam steps before the timed L-BFGS turns
-LBFGS_TIMED_STEPS = 50          # a turn of each optimizer
-LBFGS_TURNS = 2                 # new, torch, torch, new per turn pair
+LBFGS_TIMED_STEPS = 50          # a block; a turn of each rule is two
+LBFGS_TURNS = 2                 # the rules in order, then reversed, a turn
+LBFGS_LINESEARCH_STEPS = 20     # IF bodies a captured step holds
 
 
-def _lbfgs_steps(prob, n: int):
-    """``n`` `npde.lbfgs()` steps through `make_step` (as `solve` runs them)
-    -> per step (CPU copy of the parameters, stepsize, line-search steps)."""
+def _lbfgs_steps(prob, n: int, graphed: bool = False):
+    """``n`` `npde.lbfgs()` steps through `make_step`, eagerly or (on the
+    card, ``graphed``) through `GraphedSteps` as `solve` runs them (the first
+    step eager, then replays of its capture) -> per step (CPU copy of the
+    parameters, stepsize, line-search steps), and the runner's counts."""
     import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
 
     rep = prob.pinnrep
     lf = rep.loss_functions
@@ -3632,28 +3769,60 @@ def _lbfgs_steps(prob, n: int):
         len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
         rep.device))
     generator = torch.Generator(device=rep.device).manual_seed(0)
+    opt = carry[1]
+    runner = GraphedSteps(step, carry, generator) if graphed else None
     out = []
-    for _ in range(n):
-        carry, _ = step(carry, generator)
-        st = carry[1].state[carry[1]._params[0]]
-        out.append(({k: v.detach().cpu().clone()
-                     for k, v in carry[0].items()},
-                    float(st["learning_rate"]),
-                    int(st["num_linesearch_steps"])))
-    return out
+    with _side_stream(next(iter(carry[0].values()))):
+        for i in range(n):
+            if runner is not None:
+                runner(i)
+            else:
+                carry, _ = step(carry, generator)
+            st = opt.state[opt._params[0]]
+            out.append(({k: v.detach().cpu().clone()
+                         for k, v in carry[0].items()},
+                        float(st["learning_rate"]),
+                        int(st["num_linesearch_steps"])))
+    return out, (runner.stats() if runner is not None else None)
+
+
+def _eager_solve(prob, maxiters: int, inner_steps: int, callback):
+    """`solve`'s blocks of `npde.lbfgs()` steps run eagerly on the card (the
+    device form, reading its search's flag once a trial), timed as
+    `solve`'s: a callback after each block -> the last loss."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import _side_stream
+
+    rep = prob.pinnrep
+    lf = rep.loss_functions
+    step = npde.make_step(prob.loss, npde.lbfgs(), rep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions,
+                          matmul_precision=rep.matmul_precision)
+    carry = step.init(prob.init_params, rep.adaloss.init_state(
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
+        rep.device))
+    generator = torch.Generator(device=rep.device).manual_seed(0)
+    with _side_stream(next(iter(carry[0].values()))):
+        for it in range(inner_steps, maxiters + 1, inner_steps):
+            for _ in range(inner_steps):
+                carry, (loss, _) = step(carry, generator)
+            callback(it, float(loss), None)
+    return float(loss)
 
 
 def phase_lbfgs(card: str) -> dict:
     """`npde.lbfgs()`, optax.lbfgs()'s rule (`train.LBFGS`), on the card:
     the w64 Poisson `GridTraining(1/127)` jet problem for LBFGS_STEPS
-    float64 steps on the card and on the CPU from the same parameters
-    (parameters within LBFGS_CARD_VS_CPU_RTOL, line-search counts equal);
-    then the hybrid recipe's L-BFGS stage (float32, TF32 off) timed in
-    turns against `torch.optim.LBFGS` passed as a factory (strong Wolfe,
-    one iteration and at most 16 evaluations a step, the port's L-BFGS
-    before optax's rule), from the same Adam-trained parameters."""
+    float64 steps on the card, eagerly and through `solve`'s captured graph,
+    and on the CPU, from the same parameters (parameters within
+    LBFGS_CARD_VS_CPU_RTOL, line-search counts equal); then the hybrid
+    recipe's L-BFGS stage (float32, TF32 off) timed in turns: the captured
+    steps, the same device form run eagerly, and `torch.optim.LBFGS`
+    passed as a factory (strong Wolfe, one iteration and at most 16
+    evaluations a step), from the same Adam-trained parameters."""
     import neuralpde_tpu_torch as npde
     from neuralpde_tpu_torch.accuracy import poisson_2d_system
+    from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
 
     def problem(device, dtype):
@@ -3666,31 +3835,43 @@ def phase_lbfgs(card: str) -> dict:
     cpu_prob = problem("cpu", torch.float64)
     cpu_prob = cpu_prob.with_params(
         {k: v.cpu() for k, v in card_prob.init_params.items()})
-    tj.reset_launch_counts()
     t0 = time.perf_counter()
-    on_card = _lbfgs_steps(card_prob, LBFGS_STEPS)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    counts = tj.launch_counts()
-    total = _add({}, counts)
-    t0 = time.perf_counter()
-    on_cpu = _lbfgs_steps(cpu_prob, LBFGS_STEPS)
+    on_cpu, _ = _lbfgs_steps(cpu_prob, LBFGS_STEPS)
     cpu_s = time.perf_counter() - t0
-    worst = max(float(torch.max(torch.abs(a[k] - b[k]))
-                      / torch.max(torch.abs(b[k])))
-                for (a, _, _), (b, _, _) in zip(on_card, on_cpu) for k in a)
-    print(f"[lbfgs-card-vs-cpu] w64 Poisson GridTraining(1/127), jet, "
-          f"float64, {LBFGS_STEPS} steps: card {card_s:.2f} s, CPU "
-          f"{cpu_s:.2f} s; line-search steps card "
-          f"{[c for _, _, c in on_card]}, CPU {[c for _, _, c in on_cpu]}; "
-          f"stepsizes card {[round(s, 6) for _, s, _ in on_card]}; worst "
-          f"parameter rel difference {worst:.3e} (limit "
-          f"{LBFGS_CARD_VS_CPU_RTOL}); launches counted {counts}; {card}")
-    if [c for _, _, c in on_card] != [c for _, _, c in on_cpu]:
-        raise AssertionError("lbfgs: line-search counts differ card/CPU")
-    if not worst < LBFGS_CARD_VS_CPU_RTOL:
-        raise AssertionError(f"lbfgs: card against CPU {worst}")
-    _require_counts("lbfgs (float64)", counts, True)
+    total: dict = {}
+    for graphed in (False, True):
+        tj.reset_launch_counts()
+        zoom = lz.zoom_step_cuda.launches
+        t0 = time.perf_counter()
+        on_card, stats = _lbfgs_steps(card_prob, LBFGS_STEPS, graphed)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = tj.launch_counts()
+        _add(total, counts)
+        zoom = lz.zoom_step_cuda.launches - zoom
+        worst = max(float(torch.max(torch.abs(a[k] - b[k]))
+                          / torch.max(torch.abs(b[k])))
+                    for (a, _, _), (b, _, _) in zip(on_card, on_cpu)
+                    for k in a)
+        how = (f"captured (first step eager, then replays: {stats})"
+               if graphed else "eager device form")
+        print(f"[lbfgs-card-vs-cpu] w64 Poisson GridTraining(1/127), jet, "
+              f"float64, {LBFGS_STEPS} steps, {how}: card {card_s:.2f} s, "
+              f"CPU {cpu_s:.2f} s; line-search steps card "
+              f"{[c for _, _, c in on_card]}, CPU "
+              f"{[c for _, _, c in on_cpu]}; stepsizes card "
+              f"{[round(s, 6) for _, s, _ in on_card]}; worst parameter rel "
+              f"difference {worst:.3e} (limit {LBFGS_CARD_VS_CPU_RTOL}); "
+              f"launches counted {counts}, zoom_step {zoom}; {card}")
+        if [c for _, _, c in on_card] != [c for _, _, c in on_cpu]:
+            raise AssertionError("lbfgs: line-search counts differ card/CPU")
+        if not worst < LBFGS_CARD_VS_CPU_RTOL:
+            raise AssertionError(f"lbfgs: card against CPU {worst}")
+        _require_counts("lbfgs (float64)", counts, True)
+        if not zoom:
+            raise AssertionError("lbfgs (float64): zoom_step not launched")
+        if graphed and stats["replays"] != LBFGS_STEPS - 1:
+            raise AssertionError(f"lbfgs: the step was not replayed: {stats}")
 
     prob = problem("cuda", torch.float32)
     warm = npde.solve(prob, npde.adam(2e-3), maxiters=LBFGS_WARM_ADAM,
@@ -3702,39 +3883,77 @@ def phase_lbfgs(card: str) -> dict:
         calls[0] += 1
         return prob.loss(th, lstate)
 
-    rules = {"npde.lbfgs()": npde.lbfgs(),
-             "torch.optim.LBFGS": lambda ps: torch.optim.LBFGS(
-                 list(ps), lr=1.0, max_iter=1, max_eval=16,
-                 history_size=10, line_search_fn="strong_wolfe")}
+    timed = type(prob)(counted, theta, prob.pinnrep)
+    torch_lbfgs = (lambda ps: torch.optim.LBFGS(
+        list(ps), lr=1.0, max_iter=1, max_eval=16, history_size=10,
+        line_search_fn="strong_wolfe"))
+    rules = {
+        "npde.lbfgs() captured": lambda cb: npde.solve(
+            timed, npde.lbfgs(), maxiters=2 * LBFGS_TIMED_STEPS,
+            inner_steps=LBFGS_TIMED_STEPS, callback=cb),
+        "npde.lbfgs() eager": lambda cb: _eager_solve(
+            timed, 2 * LBFGS_TIMED_STEPS, LBFGS_TIMED_STEPS, cb),
+        "torch.optim.LBFGS": lambda cb: npde.solve(
+            timed, torch_lbfgs, maxiters=2 * LBFGS_TIMED_STEPS,
+            inner_steps=LBFGS_TIMED_STEPS, callback=cb)}
     times = {name: [] for name in rules}
-    for name in list(rules) + list(rules)[::-1]:       # warm-up, untimed
-        npde.solve(type(prob)(counted, theta, prob.pinnrep), rules[name],
-                   maxiters=2, inner_steps=2)
+    for name in rules:                                   # warm-up, untimed
+        rules[name](lambda *a: None)
     for turn in range(LBFGS_TURNS):
         order = list(rules) if turn % 2 == 0 else list(rules)[::-1]
         for name in order + order[::-1]:
             calls[0] = 0
             tj.reset_launch_counts()
+            zoom = lz.zoom_step_cuda.launches
+            bodies = lz.replayed_counts()["zoom_step"]
+            replayed_before = tj.replayed_counts()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = npde.solve(type(prob)(counted, theta, prob.pinnrep),
-                             rules[name], maxiters=LBFGS_TIMED_STEPS,
-                             inner_steps=LBFGS_TIMED_STEPS)
+            torch.cuda.reset_peak_memory_stats()
+            marks = [time.perf_counter()]
+
+            def block_done(it, loss, aux, marks=marks):
+                marks.append(time.perf_counter())
+
+            res = rules[name](block_done)
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**20
             counts = tj.launch_counts()
             _add(total, counts)
-            times[name].append(1e3 * seconds / LBFGS_TIMED_STEPS)
+            replayed = {k: n - replayed_before[k]
+                        for k, n in tj.replayed_counts().items()}
+            bodies = lz.replayed_counts()["zoom_step"] - bodies
+            replayed["zoom_step"] = bodies
+            counts = {**counts,
+                      "zoom_step": lz.zoom_step_cuda.launches - zoom}
+            # the second block: no first step, no capture
+            ms = 1e3 * (marks[2] - marks[1]) / LBFGS_TIMED_STEPS
+            times[name].append(ms)
+            loss = res if isinstance(res, float) else res.objective
+            graph = res.aux["cuda_graph"] if not isinstance(res, float) \
+                else None
+            if name == "npde.lbfgs() captured":
+                steps = graph["replays"]
+                evals = (f"{1 + bodies / steps:.2f} loss evaluations a "
+                         f"replayed step ({bodies} of "
+                         f"{LBFGS_LINESEARCH_STEPS * steps} IF bodies "
+                         f"entered, {LBFGS_LINESEARCH_STEPS * steps - bodies} "
+                         f"skipped); capture {graph['capture_seconds']:.3f} "
+                         f"s; {graph}")
+                if graph["captures"] != 1 or not bodies:
+                    raise AssertionError(f"lbfgs: not replayed: {graph}")
+            else:
+                evals = (f"{calls[0] / (2 * LBFGS_TIMED_STEPS):.2f} loss "
+                         f"evaluations a step")
             print(f"[lbfgs] turn {turn}: {name} on the hybrid recipe's "
                   f"L-BFGS stage (w64 GridTraining(1/127), jet, float32, TF32 "
-                  f"off), {LBFGS_TIMED_STEPS} steps from {LBFGS_WARM_ADAM} "
-                  f"Adam steps: {times[name][-1]:.3f} ms/step, "
-                  f"{calls[0] / LBFGS_TIMED_STEPS:.2f} loss evaluations a "
-                  f"step, loss {res.objective:.5e}; launches counted "
-                  f"{counts}; {card}")
+                  f"off), {2 * LBFGS_TIMED_STEPS} steps in 2 blocks from "
+                  f"{LBFGS_WARM_ADAM} Adam steps: {ms:.3f} ms/step over the "
+                  f"second block; {evals}; peak {peak:.1f} MiB; loss "
+                  f"{loss:.5e}; launches counted {counts}, by replays "
+                  f"{replayed}; {card}")
             _require_counts(f"lbfgs ({name})", counts, True)
-            if not res.objective < warm.objective:
-                raise AssertionError(f"lbfgs ({name}): loss {res.objective} "
+            if not loss < warm.objective:
+                raise AssertionError(f"lbfgs ({name}): loss {loss} "
                                      f"not below Adam's {warm.objective}")
     print(f"[lbfgs] ms/step over {2 * LBFGS_TURNS} runs each: "
           + "; ".join(f"{name} {sorted(round(t, 3) for t in ts)}"
@@ -3747,6 +3966,7 @@ def main() -> int:
     card = f"card: {smi}"
     _timed("build", phase_build)
     kernels = _timed("kernel", phase_kernels, card)
+    from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     runs = {4: lambda: phase_card_vs_cpu(),
             5: lambda: phase_main_path(card),
@@ -3787,11 +4007,14 @@ def main() -> int:
     for number, run in runs.items():
         tj.LAUNCH_SHAPES.clear()
         tj.reset_replayed_counts()
+        lz.reset_launch_counts()
+        lz.reset_replayed_counts()
         counts = _timed(f"phase {number}", run)
         allocated[number] = torch.cuda.memory_allocated()
-        replayed = tj.replayed_counts()
+        replayed = {**tj.replayed_counts(), **lz.replayed_counts()}
         check_launched_shapes(number, checked, kernels, card)
         if number in COUNTED_PHASES:
+            counts = {**counts, "zoom_step": lz.zoom_step_cuda.launches}
             _add(totals, counts)
             _add(totals, replayed)
             print(f"[launches] phase {number}: through the wrappers "
@@ -3803,6 +4026,9 @@ def main() -> int:
             f"{DOCS_MEMORY_SLACK / 2**20:.0f} MiB)")
     for k in kernels:
         k["launches"] = totals[k["name"]]
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']}: not launched by the main "
+                                 f"paths (phases {COUNTED_PHASES})")
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "max_abs_err", "ms", "plain_ms",

@@ -388,7 +388,8 @@ def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
     untimed Adam and one L-BFGS solve warm up.  Returns ``{"seconds" (None
     if the cap was hit), "iterations", "rms", "adam_seconds",
     "lbfgs_ms_per_step", "trace"}``; the L-BFGS steps (`lbfgs`, optax's
-    rule) run eagerly, each 500-step solve from a fresh memory."""
+    rule) replay a captured CUDA graph on the card, each 500-step solve
+    from a fresh memory and with a capture of its own."""
     system = poisson_2d_system()
     prob = discretize(system, PhysicsInformedNN(
         mlp([2, 64, 64, 1]), StochasticTraining(points, bcs_points=points // 8),

@@ -6,7 +6,8 @@ exact solution's initial value, end values and end slopes;
 ``mlp([2, 32, 32, 1])`` on `GridTraining([0.4, 0.1])` (51 x 11 nodes),
 Taylor-mode derivatives (the order-2 term through ``tanh_jet2`` on the
 card, orders 1, 3 and 4 through tanh's plain Taylor series), 3,000 Adam
-steps, then 600 L-BFGS steps (eager).  rel L2 (RMS ratio) on a 41 x 5 grid.
+steps, then 600 L-BFGS steps (captured on the card, in blocks of 10, as
+the JAX example's).  rel L2 (RMS ratio) on a 41 x 5 grid.
 
 The script trains only under `main` (or `run`).
 

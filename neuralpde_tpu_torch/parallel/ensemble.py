@@ -14,7 +14,8 @@ are disjoint, so each member gets exactly its own gradient) and updates the
 stacked leaves with one `train.Adam`, which being elementwise is each
 member's Adam.  On the card that step is captured as one CUDA graph and
 replayed, as `solve`'s is.  Under `train.LBFGS` the step takes the members
-in turn, each with its own memory and line search, and runs eagerly.
+in turn, each with its own memory and line search, and is captured and
+replayed the same way (its trials IF nodes of the graph).
 
 ``mesh=`` shards the member axis over the ranks of a mesh
 (`parallel.mesh`): each rank trains its ``n_ensemble / W`` members in its
@@ -133,10 +134,11 @@ class EnsembleStep(TrainStep):
                          bc_loss_fns, precision)
         self.n = n_ensemble
 
-    def run(self, theta, opt, ada_state, generator, reweight):
+    def run(self, theta, opt, ada_state, generator, reweight,
+            generators=None):
         if self.needs_closure(opt):
             return self._run_members(theta, opt, ada_state, generator,
-                                     reweight)
+                                     reweight, generators)
         opt.zero_grad(set_to_none=True)
         with matmul_precision(self.precision):
             losses, auxes = [], []
@@ -159,15 +161,19 @@ class EnsembleStep(TrainStep):
             if auxes and auxes[0] else {}
         return losses.detach(), aux
 
-    def _run_members(self, theta, opt, ada_state, generator, reweight):
+    def _run_members(self, theta, opt, ada_state, generator, reweight,
+                     generators=None):
         """`LBFGS`: the members in turn, each with its own line search (its
         evaluations draw the member's points again), as the JAX package's
-        ``vmap`` of `optax.lbfgs` steps each member alone."""
+        ``vmap`` of `optax.lbfgs` steps each member alone.  ``generators``:
+        under capture, each member's graph-safe states (`_run_closure`)."""
         if not isinstance(opt, LBFGS):
             raise ValueError("solve_ensemble runs L-BFGS as npde.lbfgs(), "
                              "one line search a member")
         out = [self._run_closure(theta, opt, ada_state, generator, reweight,
-                                 member=m) for m in range(self.n)]
+                                 member=m,
+                                 generators=generators[m] if generators
+                                 else None) for m in range(self.n)]
         aux = {k: torch.stack([a[k] for _, a in out]) for k in out[0][1]}
         return torch.stack([loss for loss, _ in out]), aux
 
@@ -218,8 +224,8 @@ def solve_ensemble(prob, optimizer=None, maxiters: int = 1000, *,
 
     Every member steps with one optimizer over the stacked parameters:
     `adam` is elementwise, so one update steps every member; `lbfgs` steps
-    the members in turn, each with its own memory and line search (eagerly,
-    also on the card).  On the card ``res.aux["cuda_graph"]`` counts the
+    the members in turn, each with its own memory and line search (captured
+    on the card, as `solve`'s steps).  On the card ``res.aux["cuda_graph"]`` counts the
     captures and replays.
     """
     mesh = check_mesh(mesh)

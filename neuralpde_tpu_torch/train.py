@@ -27,10 +27,12 @@ reweights) runs once as it is, then is captured as one CUDA graph
 (forward, backward, update; the stochastic strategies' draws come from the
 solve's generator, registered with the graph, so every replay draws fresh
 points) and replayed for every later step of that kind.  A step that fails
-to capture raises.  `LBFGS` (and a user's `torch.optim.LBFGS`) reads
-scalars on the host in its line search and cannot be captured: it is the
-one optimizer whose steps run eagerly on the card.  On the CPU every step
-runs eagerly.
+to capture raises.  An `LBFGS` step is captured whole, as optax's
+``while_loop`` is compiled into the JAX package's step: its zoom line
+search keeps its state on the device, each search step one `zoom_step`
+kernel, and each trial is an IF node of the graph on the search's flag
+(`GraphedSteps`).  A user's `torch.optim.LBFGS` reads scalars on the host
+in its line search and runs eagerly.  On the CPU every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -40,13 +42,21 @@ import math
 import os
 import time
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from .config import matmul_precision
+from .kernels import lbfgs_zoom
+from .kernels.lbfgs_zoom import (
+    COUNT, CURV_ERR, DEC_ERR, LINESEARCH_STEPS, NEXT, SLOPE, SLOPE_INIT,
+    SLOPE_RTOL, STEPSIZE, VALUE, VALUE_INIT, zoom_init, zoom_step,
+    zoom_transition,
+)
+from .kernels.graph_if import BodyPool, body_stream, if_body
+from .kernels.lbfgs_zoom import STATE_SIZE as ZOOM_STATE_SIZE
 from .kernels.tanh_jet import add_replayed, counts_since, launch_counts
 from .logging_utils import logscalar, logvector
 from .parallel.mesh import BATCH_AXIS, all_reduce_flat, get_mesh
@@ -121,12 +131,8 @@ def adam(lr: float = 1e-3) -> Callable:
     return lambda params: Adam(params, lr=lr)
 
 
-# optax.lbfgs()'s line search: scale_by_zoom_linesearch(
-# max_linesearch_steps=20, initial_guess_strategy="one") with the defaults
-# of its other arguments (no largest stepsize)
-LBFGS_LINESEARCH_STEPS = 20
-_SLOPE_RTOL, _CURV_RTOL, _APPROX_DEC_RTOL = 1e-4, 0.9, 1e-6
-_STEPSIZE_PRECISION, _INCREASE_FACTOR, _TOL = 1e-5, 2.0, 0.0
+LBFGS_LINESEARCH_STEPS = LINESEARCH_STEPS
+_SLOPE_RTOL = SLOPE_RTOL
 
 
 def _flat(xs):
@@ -157,132 +163,109 @@ def _leaves(vec, likes):
     return out
 
 
-def _cubicmin(a, fa, fpa, b, fb, c, fc):
-    """optax's ``_cubicmin``: the critical point of the cubic through (a,
-    fa), (b, fb), (c, fc) with slope fpa at a; NaN where there is none."""
-    C = fpa
-    db, dc = b - a, c - a
-    denom = (db * dc) * (db * dc) * (db - dc)
-    v0, v1 = fb - fa - C * db, fc - fa - C * dc
-    A = (dc * dc * v0 + (-(db * db)) * v1) / denom
-    B = ((-(dc * (dc * dc))) * v0 + db * (db * db) * v1) / denom
-    radical = B * B - 3.0 * A * C
-    return a + (-B + np.sqrt(radical)) / (3.0 * A)
-
-
-def _quadmin(a, fa, fpa, b, fb):
-    """optax's ``_quadmin``: the critical point of the quadratic through
-    (a, fa), (b, fb) with slope fpa at a."""
-    db = b - a
-    B = (fb - fa - fpa * db) / (db * db)
-    return a - fpa / (2.0 * B)
-
-
 def zoom_linesearch(value_init, slope_init, evaluate):
     """optax's zoom line search (`scale_by_zoom_linesearch` with
     `LBFGS_LINESEARCH_STEPS` and its defaults) along one direction, on host
-    scalars.
+    scalars: `zoom_init`, then `zoom_transition` until the search ends.
 
     ``value_init``/``slope_init`` are numpy scalars of one float dtype, the
     value at stepsize 0 and the slope there; ``evaluate(stepsize)`` returns
     the value and the slope at a stepsize as numpy scalars of that dtype.
-    Each call to it is one step of the search: first the interval search
-    (stepsize 1, then doubled) until an interval holds a stepsize that
-    meets both the sufficient decrease (Armijo, or Hager and Zhang's
-    approximate decrease once the value is within 1e-6 of the start) and the
-    curvature criteria, then the zoom (a cubic, else quadratic, else
-    bisection step) into it.  A search that reaches the step bound, or whose
-    interval falls below 1e-5 with a stepsize of sufficient decrease known,
-    fails and returns that safe stepsize where there is one (or where the
-    last value was not finite), else the last stepsize tried.
+    Each call to it is one step of the search (`zoom_transition` says which).
 
     Returns ``(stepsize, steps, decrease_error, curvature_error)``, optax's
     ``ZoomLinesearchInfo``."""
-    f = type(value_init)
-    zero, inf = f(0.0), f(np.inf)
+    state, searching = zoom_init(value_init, slope_init), True
+    while searching:
+        state, _, searching = zoom_transition(state,
+                                              *evaluate(state[NEXT]))
+    return (state[STEPSIZE], int(state[COUNT]), state[DEC_ERR],
+            state[CURV_ERR])
 
-    def errors(stepsize, value, slope):
-        dec = value - value_init - _SLOPE_RTOL * stepsize * slope_init
-        approx = slope - (2 * _SLOPE_RTOL - 1.0) * slope_init
-        delta = value - value_init - _APPROX_DEC_RTOL * np.abs(value_init)
-        dec = np.maximum(np.minimum(np.maximum(approx, delta), dec), zero)
-        curv = np.maximum(np.abs(slope) - _CURV_RTOL * np.abs(slope_init),
-                          zero)
-        return (inf if np.isnan(dec) else dec,
-                inf if np.isnan(curv) else curv)
 
-    count, stepsize, value, slope = 0, zero, value_init, slope_init
-    dec_err = curv_err = inf
-    interval_found = done = failed = False
-    low = high = cubic_ref = zero
-    value_low = value_high = value_cubic_ref = value_init
-    slope_low = slope_high = slope_init
-    safe_stepsize, safe_value = zero, value_init
-    with np.errstate(all="ignore"):
-        while not (done or failed):
-            if not interval_found:
-                new = f(1.0) if count == 0 else f(_INCREASE_FACTOR * stepsize)
-                v, s = evaluate(new)
-                dec_err, curv_err = errors(new, v, s)
-                if dec_err <= _TOL:
-                    safe_stepsize, safe_value = new, v
-                set_high = dec_err > 0.0 or (v >= value and count > 0)
-                set_low = s >= 0.0 and not set_high
-                if set_low:
-                    low, value_low, slope_low = new, v, s
-                    high, value_high, slope_high = stepsize, value, slope
-                else:
-                    low, value_low, slope_low = stepsize, value, slope
-                    high, value_high, slope_high = new, v, s
-                done = max(dec_err, curv_err) <= _TOL
-                interval_found = set_high or set_low or done
-                failed = count + 1 >= LBFGS_LINESEARCH_STEPS and not done
-                cubic_ref, value_cubic_ref = low, value_low
-            else:
-                delta = np.abs(high - low)
-                left, right = np.minimum(high, low), np.maximum(high, low)
-                too_small = delta <= _STEPSIZE_PRECISION
-                cubic = _cubicmin(low, value_low, slope_low, high, value_high,
-                                  cubic_ref, value_cubic_ref)
-                quad = _quadmin(low, value_low, slope_low, high, value_high)
-                if left + 0.2 * delta < cubic < right - 0.2 * delta:
-                    new = cubic
-                elif left + 0.1 * delta < quad < right - 0.1 * delta:
-                    new = quad
-                else:
-                    new = (low + high) / 2.0
-                v, s = evaluate(new)
-                dec_err, curv_err = errors(new, v, s)
-                if dec_err <= _TOL and v < safe_value:
-                    safe_stepsize, safe_value = new, v
-                done = max(dec_err, curv_err) <= _TOL
-                high_to_new = dec_err > 0.0 or v >= value_low
-                high_to_low = s * (high - low) >= 0.0 and not high_to_new
-                if high_to_new or high_to_low:
-                    cubic_ref, value_cubic_ref = high, value_high
-                else:
-                    cubic_ref, value_cubic_ref = low, value_low
-                if high_to_new:
-                    high, value_high, slope_high = new, v, s
-                elif high_to_low:
-                    high, value_high, slope_high = low, value_low, slope_low
-                if not high_to_new:
-                    low, value_low, slope_low = new, v, s
-                failed = ((count + 1 >= LBFGS_LINESEARCH_STEPS
-                           or (too_small and safe_stepsize > 0.0))
-                          and not done)
-            count += 1
-            stepsize, value, slope = new, v, s
-            if failed and (safe_stepsize > 0.0 or np.isinf(dec_err)):
-                stepsize, value = safe_stepsize, safe_value
-    return stepsize, count, dec_err, curv_err
+def _lbfgs_direction(g, params, prev_params, prev_updates, dw_mem, du_mem,
+                     weights, count, scale_init: bool):
+    """`scale_by_lbfgs`'s update of the memory and its two-loop recursion ->
+    the direction u = -H g, with the count a device tensor.
+
+    ``g`` is the gradient as one `_flat` vector; ``params``,
+    ``prev_params``/``prev_updates`` (the previous step's parameters and
+    gradient) and the stacked differences ``dw_mem``/``du_mem`` are lists a
+    parameter, ``weights`` the ``(memory_size,)`` weights; the memory and
+    weights are written in place at slot ``(count - 1) % memory_size``.
+    The first step (count 0) is selected by `torch.where`, the slots by
+    device indices, so nothing is read on the host."""
+    memory_size = weights.shape[0]
+    first = count == 0
+    prev = torch.remainder(count - 1, memory_size).reshape(1)
+    dw = torch.where(first, 0.0, _flat(params) - _flat(prev_params))
+    du = torch.where(first, 0.0, g - _flat(prev_updates))
+    curv = torch.dot(du, dw)
+    weights.index_copy_(0, prev, torch.where(curv == 0.0, 0.0,
+                                             1.0 / curv).reshape(1))
+    for buf, d in zip(dw_mem, _leaves(dw, params)):
+        buf.index_copy_(0, prev, d.unsqueeze(0))
+    for buf, d in zip(du_mem, _leaves(du, params)):
+        buf.index_copy_(0, prev, d.unsqueeze(0))
+    if not scale_init:
+        gamma = 1.0
+    else:
+        den = torch.dot(du, du)
+        gamma = torch.where(
+            first, torch.clamp(1.0 / torch.sqrt(torch.dot(g, g)), max=1.0),
+            torch.where(den > 0.0, torch.dot(du, dw) / den, 1.0))
+    # the recursion from slot count % memory_size: newest pair first, then
+    # oldest first
+    order = torch.remainder(
+        count + torch.arange(memory_size, device=count.device), memory_size)
+    dws = _flat_memory(dw_mem).index_select(0, order)
+    dus = _flat_memory(du_mem).index_select(0, order)
+    ws = weights.index_select(0, order)
+    vec, alphas = g, [None] * memory_size
+    for j in reversed(range(memory_size)):
+        alphas[j] = ws[j] * torch.dot(dws[j], vec)
+        vec = vec + (-alphas[j]) * dus[j]
+    vec = gamma * vec
+    for j in range(memory_size):
+        beta = ws[j] * torch.dot(dus[j], vec)
+        vec = vec + (alphas[j] - beta) * dws[j]
+    return -vec
+
+
+@contextlib.contextmanager
+def _trial(flag: torch.Tensor, pool):
+    """A line-search trial guarded by ``flag`` (a bool scalar): the ``as``
+    value says whether to run the body.  Under CUDA-graph capture the body
+    is captured into an IF node on the flag (`kernels.graph_if`, its
+    allocations from ``pool``), and the value is True; otherwise the flag
+    is read (one host read), and on the card a body that runs runs on the
+    IF bodies' stream, as it will in the graph."""
+    if not flag.is_cuda:
+        yield bool(flag)
+    elif torch.cuda.is_current_stream_capturing():
+        if pool is None:
+            raise RuntimeError("an LBFGS step is captured by solve's "
+                               "GraphedSteps, which gives its trials a pool")
+        with if_body(flag, pool):
+            yield True
+    elif not bool(flag):
+        yield False
+    else:
+        outer, body = torch.cuda.current_stream(flag.device), body_stream(
+            flag.device)
+        body.wait_stream(outer)
+        try:
+            with torch.cuda.stream(body):
+                yield True
+        finally:
+            outer.wait_stream(body)
 
 
 class LBFGS(torch.optim.Optimizer):
     """`optax.lbfgs()`'s rule: `scale_by_lbfgs(memory_size,
     scale_init_precond)`, `scale(-1)` and `scale_by_zoom_linesearch(
     max_linesearch_steps=20, initial_guess_strategy="one")`, one update a
-    step.
+    step, with no host read on the card.
 
     ``step(closure)``: ``closure()`` evaluates the loss at the parameters as
     they are and sets their gradients.  Its first call gives the step's
@@ -292,13 +275,25 @@ class LBFGS(torch.optim.Optimizer):
     0; nothing at the first step), and the two-loop recursion from slot
     ``count % memory_size`` preconditions g with the initial scale
     <dg, dw>/<dg, dg> (1 where dg = 0; min(1, 1/||g||) at the first step).
-    The direction u is minus that; `zoom_linesearch` picks the stepsize,
-    each of its steps one more call of ``closure`` at w + stepsize u, and
-    the parameters end at w + stepsize u.  For complex parameters every
-    inner product is the real part of <x, y> (the gradient is torch's, the
-    conjugate of `jax.grad`'s, which the JAX package's trainer conjugates
-    before optax sees it).  The recursion runs on the parameters laid end
-    to end as one real vector (`_flat`), a dot product a memory slot.
+    The count stays on the device: the slots are indexed by device tensors
+    and the first step is selected by `torch.where`.  The direction u is
+    minus the result; the zoom line search picks the stepsize, each of its
+    steps one more call of ``closure`` at w + stepsize u, and the parameters
+    end at w + stepsize u.  For complex parameters every inner product is
+    the real part of <x, y> (the gradient is torch's, the conjugate of
+    `jax.grad`'s, which the JAX package's trainer conjugates before optax
+    sees it).  The recursion runs on the parameters laid end to end as one
+    real vector (`_flat`), a dot product a memory slot.
+
+    The line search keeps its state on the device (`kernels.lbfgs_zoom`):
+    `LBFGS_LINESEARCH_STEPS` trials, each guarded by the ``searching`` flag
+    and each a move, a call of ``closure`` (its gradients zeroed in place,
+    not set to None), the slope <g, u> and one `zoom_step`, which on the
+    card is a kernel that writes the next state, stepsize and flag.  Under
+    CUDA-graph capture each trial is an IF node on the flag, so `solve`
+    captures the whole step (module note); run eagerly, the flag is read
+    once a trial, the one host read of the step.  On the CPU `zoom_step`
+    is the plain transition on numpy scalars.
 
     The state holds, a parameter, the previous parameters and gradient and
     the stacked ``(memory_size, *shape)`` differences; with the first
@@ -308,8 +303,8 @@ class LBFGS(torch.optim.Optimizer):
     every scalar of the line search are in the parameters' real dtype,
     which is optax's arithmetic with JAX's x64 off; with it on, optax keeps
     the weights and some scalars of the search in float64 also for float32
-    parameters.  The line search reads two scalars (value and slope) on the
-    host a call, so its steps run eagerly, also on the card.
+    parameters.  The search's packed state and flag are scratch, rebuilt
+    at the first step and not saved.
 
     ``step(closure, member=m)`` (`solve_ensemble`) treats the parameters'
     leading axis as members: it steps member m alone, with its own memory,
@@ -324,6 +319,12 @@ class LBFGS(torch.optim.Optimizer):
         super().__init__(params, dict(memory_size=memory_size,
                                       scale_init_precond=scale_init_precond))
         self._params = [p for g in self.param_groups for p in g["params"]]
+        self._search = None
+        # set by `GraphedSteps` around a capture: the allocator pool of the
+        # trials' IF bodies, and the kernels' launches in each body captured
+        # (it reports a replay's from the bodies the replay ran)
+        self.body_pool = None
+        self.trial_launches: list = []
 
     def _init_state(self, member) -> None:
         p0 = self._params[0]
@@ -355,6 +356,15 @@ class LBFGS(torch.optim.Optimizer):
             if k in st:
                 st[k] = st[k].to(torch.int64)
 
+    def _scratch(self, real, device):
+        """The line search's packed state and ``searching`` flag, made
+        once, so that a captured step finds them at fixed addresses."""
+        if self._search is None:
+            self._search = (
+                torch.zeros(ZOOM_STATE_SIZE, dtype=real, device=device),
+                torch.zeros((), dtype=torch.bool, device=device))
+        return self._search
+
     @torch.no_grad()
     def step(self, closure=None, member: int | None = None):
         if closure is None:
@@ -362,7 +372,6 @@ class LBFGS(torch.optim.Optimizer):
         closure = torch.enable_grad()(closure)
         if not self.state[self._params[0]]:
             self._init_state(member)
-        memory_size = self.param_groups[0]["memory_size"]
         scale_init = self.param_groups[0]["scale_init_precond"]
         if member is None:
             at, mem = (lambda t: t), (lambda t: t)
@@ -385,78 +394,57 @@ class LBFGS(torch.optim.Optimizer):
 
         loss = closure()
         g = _flat(grads())
-        count = int(glob["count"])
-        idx, prev = count % memory_size, (count - 1) % memory_size
+        count = glob["count"]
         weights = glob["weights_memory"]
-        if count > 0:
-            dw = _flat(params) - _flat(prev_params)
-            du = g - _flat(prev_updates)
-            curv = torch.dot(du, dw)
-            weights[prev] = torch.where(curv == 0.0, 0.0, 1.0 / curv)
-        else:
-            dw = du = torch.zeros_like(g)
-            weights[prev] = 0.0
-        for buf, d in zip(dw_mem, _leaves(dw, params)):
-            buf[prev].copy_(d)
-        for buf, d in zip(du_mem, _leaves(du, params)):
-            buf[prev].copy_(d)
-        if not scale_init:
-            gamma = 1.0
-        elif count > 0:
-            den = torch.dot(du, du)
-            gamma = torch.where(den > 0.0, torch.dot(du, dw) / den, 1.0)
-        else:
-            gamma = torch.clamp(1.0 / torch.sqrt(torch.dot(g, g)), max=1.0)
-        # the two-loop recursion, newest pair first, then oldest first
-        order = [(idx + j) % memory_size for j in range(memory_size)]
-        dws, dus = _flat_memory(dw_mem), _flat_memory(du_mem)
-        vec, alphas = g, {}
-        for i in reversed(order):
-            alphas[i] = weights[i] * torch.dot(dws[i], vec)
-            vec = vec + (-alphas[i]) * dus[i]
-        vec = gamma * vec
-        for i in order:
-            beta = weights[i] * torch.dot(dus[i], vec)
-            vec = vec + (alphas[i] - beta) * dws[i]
-        u = -vec
+        u = _lbfgs_direction(g, params, prev_params, prev_updates, dw_mem,
+                             du_mem, weights, count, scale_init)
         start = _flat(params)
         for q, p in zip(prev_params, params):
             q.copy_(p)
         for q, x in zip(prev_updates, _leaves(g, params)):
             q.copy_(x)
-        glob["count"].add_(1)
+        count.add_(1)
 
         real = weights.dtype
-        host = torch.stack([loss.detach().to(real),
-                            torch.dot(u, g)]).cpu().numpy()
+        state, searching = self._scratch(real, g.device)
+        # zoom_init on device scalars
+        state[:VALUE].zero_()
+        state[VALUE:VALUE_INIT + 1].copy_(loss.detach().to(real).expand(
+            VALUE_INIT + 1 - VALUE))
+        state[SLOPE:SLOPE_INIT + 1].copy_(torch.dot(u, g).expand(
+            SLOPE_INIT + 1 - SLOPE))
+        state[DEC_ERR:CURV_ERR + 1].fill_(math.inf)
+        state[NEXT].fill_(1.0)
+        searching.fill_(True)
 
         def move(stepsize):
-            for p, x in zip(params, _leaves(start + float(stepsize) * u,
-                                            params)):
+            for p, x in zip(params, _leaves(start + stepsize * u, params)):
                 p.copy_(x)
 
-        def evaluate(stepsize):
-            move(stepsize)
-            value = closure()
-            pair = torch.stack([value.detach().to(real),
-                                torch.dot(_flat(grads()), u)])
-            return tuple(pair.cpu().numpy())
-
-        stepsize, steps, dec, curv = zoom_linesearch(host[0], host[1],
-                                                     evaluate)
-        move(stepsize)
-        glob["learning_rate"].fill_(float(stepsize))
-        glob["num_linesearch_steps"].fill_(steps)
-        glob["decrease_error"].fill_(float(dec))
-        glob["curvature_error"].fill_(float(curv))
+        info = [glob[k] for k in ("learning_rate", "num_linesearch_steps",
+                                  "decrease_error", "curvature_error")]
+        capturing = g.is_cuda and torch.cuda.is_current_stream_capturing()
+        for _ in range(LBFGS_LINESEARCH_STEPS):
+            with _trial(searching, self.body_pool) as run:
+                if run:
+                    before = launch_counts()
+                    move(state[NEXT])
+                    value = closure().detach().to(real)
+                    zoom_step(state, value, torch.dot(_flat(grads()), u),
+                              searching, *info)
+                    if capturing:
+                        self.trial_launches.append(counts_since(before))
+            if not run:
+                break
+        move(state[STEPSIZE])
         return loss
 
 
 def lbfgs(memory_size: int = 10, scale_init_precond: bool = True
           ) -> Callable:
     """Optimizer factory: `LBFGS`, `optax.lbfgs()`'s rule (its two-loop
-    recursion and zoom line search) with its defaults.  Its steps run
-    eagerly, also on the card (see the module note)."""
+    recursion and zoom line search) with its defaults.  On the card `solve`
+    captures its steps as CUDA graphs (see the module note)."""
     return lambda params: LBFGS(params, memory_size=memory_size,
                                 scale_init_precond=scale_init_precond)
 
@@ -530,10 +518,13 @@ class TrainStep:
         """Member ``m`` of stacked parameters or state."""
         return {k: v[m] for k, v in tree.items()}
 
+    # `_run_closure` appends the generator's offset at each eager run's
+    # start to a list here (`GraphedSteps` sets one to learn the offsets)
+    closure_offsets: list | None = None
+
     @staticmethod
     def needs_closure(opt) -> bool:
-        """Whether ``opt`` evaluates the loss itself through a closure (and
-        so reads the host, and runs eagerly also on the card)."""
+        """Whether ``opt`` evaluates the loss itself through a closure."""
         return isinstance(opt, (LBFGS, torch.optim.LBFGS))
 
     def init(self, params: dict, ada_state: dict, iteration: int = 0):
@@ -551,12 +542,18 @@ class TrainStep:
         return bool(self.every) and (iteration + 1) % self.every == 0
 
     def run(self, theta: dict, opt, ada_state: dict, generator,
-            reweight: bool):
+            reweight: bool, generators=None):
         """One step in place -> ``(loss, aux)``, detached tensors on the
-        device.  Reads nothing back to the host (except under LBFGS), so it
-        can be captured."""
+        device.  Reads nothing back to the host (except under a
+        `torch.optim.LBFGS`, and `LBFGS` run eagerly on the card, which
+        reads its search's flag once a trial), so it can be captured.
+        ``generators``: under capture, the graph-safe states of the line
+        search's evaluations (`_run_closure`), in a list of one."""
         if self.needs_closure(opt):
-            return self._run_closure(theta, opt, ada_state, generator, reweight)
+            return self._run_closure(theta, opt, ada_state, generator,
+                                     reweight, generators=(
+                                         generators[0] if generators
+                                         else None))
         opt.zero_grad(set_to_none=True)
         group = self._data_group()
         with matmul_precision(self.precision):
@@ -590,13 +587,27 @@ class TrainStep:
                 ada_state[k].copy_(v)
 
     def _run_closure(self, theta, opt, ada_state, generator, reweight,
-                     member=None):
+                     member=None, generators=None):
         """L-BFGS: every evaluation of its line search draws the step's
-        points again (the generator is rewound to the step's start, as the
-        JAX package's ``value_fn`` reuses the step's key) and sees the
-        weights from before this step's reweighting.  ``member``: step that
-        member of stacked parameters alone (`LBFGS.step`'s ``member``)."""
-        start = generator.get_state() if generator is not None else None
+        points again, as the JAX package's ``value_fn`` reuses the step's
+        key, and sees the weights from before this step's reweighting.  Run
+        eagerly, the generator is rewound to the step's start before each
+        evaluation (and its offset there is appended to ``closure_offsets``
+        when that is a list).  Under CUDA-graph capture, where a generator's
+        state cannot be set, evaluation i (0 the first) draws from
+        ``generators[i]``, a graph-safe state that `GraphedSteps` sets to
+        the step's start before each replay (None: the step draws nothing).
+        ``member``: step that member of stacked parameters alone
+        (`LBFGS.step`'s ``member``)."""
+        like = next(iter(theta.values()))
+        capturing = like.is_cuda and torch.cuda.is_current_stream_capturing()
+        start = None
+        if generator is not None and not capturing:
+            start = generator.get_state()
+            if self.closure_offsets is not None:
+                self.closure_offsets.append(generator.get_offset())
+        main = generator.graphsafe_get_state() if generators else None
+        states = iter(generators or ())
         kw = {} if member is None else {"member": member}
 
         def at(tree):
@@ -608,22 +619,32 @@ class TrainStep:
         group = self._data_group()
 
         def closure():
+            trial = bool(first)
             if start is not None:
                 generator.set_state(start)
-            opt.zero_grad(set_to_none=True)
-            with matmul_precision(self.precision):
-                loss, aux = self.loss_fn(at(theta), {"generator": generator,
-                                                     "adaptive": weights})
-                loss.backward()
-                loss = loss.detach()
-                aux = {k: v.detach() for k, v in aux.items()}
-                if group is not None:
-                    loss, aux = self._sum_shares(group, theta, loss, aux)
-                if not first:
-                    first.append((loss, aux))
-                    if reweight:
-                        self._reweight(at(theta), at(ada_state), first[0][1],
-                                       generator)
+            elif main is not None:
+                generator.graphsafe_set_state(next(states))
+            # a trial's gradients go into the buffers of the first
+            # evaluation, which a captured step holds at fixed addresses
+            opt.zero_grad(set_to_none=not trial)
+            try:
+                with matmul_precision(self.precision):
+                    loss, aux = self.loss_fn(at(theta),
+                                             {"generator": generator,
+                                              "adaptive": weights})
+                    loss.backward()
+                    loss = loss.detach()
+                    aux = {k: v.detach() for k, v in aux.items()}
+                    if group is not None:
+                        loss, aux = self._sum_shares(group, theta, loss, aux)
+                    if not trial:
+                        first.append((loss, aux))
+                        if reweight:
+                            self._reweight(at(theta), at(ada_state), aux,
+                                           generator)
+            finally:
+                if main is not None:
+                    generator.graphsafe_set_state(main)
             return loss
 
         opt.step(closure, **kw)
@@ -698,15 +719,37 @@ class GraphedSteps:
     registered with it, so each replay draws fresh points.  The kernels'
     wrappers count a captured step's launches once; each replay reports
     them again to `kernels.tanh_jet.add_replayed`.
+
+    An `LBFGS` step is captured whole: its line-search trials are IF nodes
+    on the search's device flag (`LBFGS.step`).  Where the step draws
+    points, its eager run gives the generator's offset at the start of each
+    line search (one a member in `solve_ensemble`) and the step's advance;
+    in the graph every evaluation draws from a graph-safe generator state
+    of its own, set before each replay to the offset at which the eager
+    step drew its points, and after the replay the solve's generator
+    advances as the eager step advanced it, so that captured and eager
+    steps draw alike.  A replay runs the trials its searches need, so the
+    launches inside the trial bodies are reported from the device's count
+    of them when `stats` is read.  A user's `torch.optim.LBFGS` reads the
+    host and runs eagerly.
     """
 
     def __init__(self, step: TrainStep, carry, generator: torch.Generator):
         self.step = step
         self.theta, self.opt, self.ada_state, _ = carry
         self.generator = generator
-        self.eager = step.needs_closure(self.opt)
+        self.eager = isinstance(self.opt, torch.optim.LBFGS)
+        self.lbfgs = isinstance(self.opt, LBFGS)
         self._seen: set = set()
+        # per kind of LBFGS step: each line search's start offset relative
+        # to the step's, and the step's advance of the generator
+        self._draws: dict = {}
         self._graphs: dict = {}
+        # trial bodies run by replays (a device count), those reported, and
+        # the launches of one body
+        self._entered = None
+        self._reported = 0
+        self._body: dict = {}
         self.captures = 0
         self.capture_seconds = 0.0
         self.replays = 0
@@ -717,12 +760,31 @@ class GraphedSteps:
         kind = self.step.reweights(iteration)
         if self.eager or kind not in self._seen:
             self._seen.add(kind)
-            return self.step.run(self.theta, self.opt, self.ada_state,
-                                 self.generator, kind)
+            if not self.lbfgs:
+                return self.step.run(self.theta, self.opt, self.ada_state,
+                                     self.generator, kind)
+            offset = self.generator.get_offset()
+            self.step.closure_offsets = []
+            try:
+                out = self.step.run(self.theta, self.opt, self.ada_state,
+                                    self.generator, kind)
+                self._draws[kind] = (
+                    [o - offset for o in self.step.closure_offsets],
+                    self.generator.get_offset() - offset)
+            finally:
+                self.step.closure_offsets = None
+            return out
         if kind not in self._graphs:
             self._graphs[kind] = self._capture(kind)
-        graph, out, launched = self._graphs[kind]
+        graph, out, launched, generators = self._graphs[kind]
+        if generators:
+            offset = self.generator.get_offset()
+            for states, start in zip(generators, self._draws[kind][0]):
+                for state in states:
+                    state.set_offset(offset + start)
         graph.replay()
+        if generators:
+            self.generator.set_offset(offset + self._draws[kind][1])
         add_replayed(launched)
         self.replays += 1
         return out
@@ -732,21 +794,58 @@ class GraphedSteps:
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
+        kw, generators = {}, None
+        if self.lbfgs:
+            starts, advance = self._draws[reweight]
+            if advance:
+                # the first evaluation and each trial of each line search
+                generators = [[self.generator.clone_state()
+                               for _ in range(1 + LBFGS_LINESEARCH_STEPS)]
+                              for _ in starts]
+                for state in (s for states in generators for s in states):
+                    graph.register_generator_state(state)
+                kw = {"generators": generators}
+            if self._entered is None:
+                self._entered = torch.zeros((), dtype=torch.int64,
+                                            device=self.generator.device)
+            self.opt.trial_launches = []
+            self.opt.body_pool = BodyPool(self.generator.device)
+            weakref.finalize(graph, self.opt.body_pool.release)
         try:
             with torch.cuda.graph(graph,
                                   stream=torch.cuda.current_stream()):
                 out = self.step.run(self.theta, self.opt, self.ada_state,
-                                    self.generator, reweight)
+                                    self.generator, reweight, **kw)
+                if self.lbfgs:
+                    self._entered.add_(self.opt.state[self.opt._params[0]][
+                        "num_linesearch_steps"].sum())
         except RuntimeError as e:
             raise RuntimeError(
                 "solve: the training step could not be captured as a CUDA "
                 f"graph ({type(self.opt).__name__}"
                 f"{', reweighting' if reweight else ''}): {e}") from e
+        finally:
+            if self.lbfgs:
+                self.opt.body_pool = None
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
-        return graph, out, counts_since(before)
+        launched = counts_since(before)
+        if self.lbfgs:
+            # the launches outside the trial bodies run at every replay
+            bodies = self.opt.trial_launches
+            self._body = bodies[0]
+            launched = {k: n - sum(b[k] for b in bodies)
+                        for k, n in launched.items()}
+        return graph, out, launched, generators
 
     def stats(self) -> dict:
+        """The capture and replay counts; reports the launches of the trial
+        bodies that replays ran (one host read)."""
+        if self._entered is not None:
+            entered = int(self._entered) - self._reported
+            self._reported += entered
+            add_replayed(self._body, entered)
+            lbfgs_zoom.add_replayed(entered)
         return {"captures": self.captures,
                 "capture_seconds": self.capture_seconds,
                 "replays": self.replays}
@@ -973,8 +1072,7 @@ def solve_hybrid(prob, *, adam_iters: int = 2000, lbfgs_iters: int = 1000,
     landscape; L-BFGS's curvature steps polish to low loss in far fewer
     iterations.  The Adam stage replays captured CUDA graphs on the card;
     the L-BFGS stage (`lbfgs`, optax.lbfgs()'s rule as in the JAX package)
-    runs its steps eagerly, since its line search reads the loss on the
-    host.
+    replays one too, its line-search trials IF nodes of the graph.
 
     Works best with deterministic strategies (Grid, Quadrature) in the
     L-BFGS stage: the line search assumes a fixed objective.  Returns a

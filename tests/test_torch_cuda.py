@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions;
 Gauss-Newton's CUDA-graph inner solve against the same solve step by step;
 and `solve`'s captured training step (eager against replayed, fresh points
-per replay, the reweighting graph, a capture that fails, L-BFGS eagerly).
+per replay, the reweighting graph, a capture that fails); the `zoom_step`
+kernel against its plain version, and `npde.lbfgs()` captured (against the
+CPU, with no host read in a block, restored from a checkpoint).
 Graph against eager steps: rtol 1e-6 (the same kernels on the same inputs).
 
 These tests need a CUDA device and skip without one.  The file imports no
@@ -12,6 +14,8 @@ JAX, so it also runs where JAX is not installed:
 Tolerances: float32 rtol 1e-5, atol 1e-6 (`tanhf` and torch's tanh differ by
 a few ulp, and s = 1 - a^2 cancels for large |z|); float64 1e-12.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -358,36 +362,248 @@ def test_a_step_that_cannot_be_captured_raises(cuda):
                    maxiters=3)
 
 
+# float64 parameters of `solve` with `npde.lbfgs()`, card against CPU: the
+# same arithmetic in other reduction orders (cuBLAS's and the CPU's), whose
+# differences L-BFGS steps grow (chip_smoke.py's LBFGS_CARD_VS_CPU_RTOL)
+LBFGS_CARD_VS_CPU_RTOL = 1e-8
+# the optimizer state that `train.LBFGS` saved before its line search ran
+# on the device, and still saves: a parameter's, then the first
+# parameter's scalars and memory
+LBFGS_STATE_KEYS = (
+    {"params", "updates", "diff_params_memory", "diff_updates_memory"},
+    {"count", "weights_memory", "learning_rate", "num_linesearch_steps",
+     "decrease_error", "curvature_error"})
+
+
 @pytest.mark.cuda
-def test_lbfgs_steps_run_eagerly_on_the_card(cuda):
-    """`npde.lbfgs()` (optax's rule, `train.LBFGS`): its steps run eagerly
-    on the card, descend, and keep their state there; a user's
-    `torch.optim.LBFGS` factory still trains through `solve`."""
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_zoom_step_kernel_is_bit_equal_to_the_transition(cuda, dtype):
+    """The `zoom_step` kernel against `zoom_transition` on every step of
+    real searches and on edge values (`transition_cases`), bit for bit:
+    the state, the flag and, where a search ends, optax's info."""
+    from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
+
+    cases = lz.transition_cases(dtype, searches=100)
+    assert len(cases) >= 1000
+    n = len(cases)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    state = torch.tensor(np.stack([c[0] for c in cases]), device=cuda)
+    value, slope = (torch.tensor(np.array([c[i] for c in cases], dtype=dtype),
+                                 device=cuda) for i in (1, 2))
+    flag = torch.zeros(n, dtype=torch.bool, device=cuda)
+    info = [torch.full((n,), -1, dtype=d, device=cuda)
+            for d in (tdt, torch.int64, tdt, tdt)]
+    before = lz.zoom_step_cuda.launches
+    for i in range(n):
+        lz.zoom_step(state[i], value[i], slope[i], flag[i],
+                     *(t[i] for t in info))
+    torch.cuda.synchronize()
+    assert lz.zoom_step_cuda.launches == before + n
+    got = state.cpu().numpy()
+    flags = flag.cpu().numpy()
+    lr, steps, dec, curv = (t.cpu().numpy() for t in info)
+    for i, case in enumerate(cases):
+        want, nxt, searching = lz.zoom_transition(*case)
+        assert got[i].tobytes() == want.tobytes(), (i, got[i], want)
+        assert flags[i] == searching, i
+        if searching:
+            assert steps[i] == -1, i
+        else:
+            assert (lr[i].tobytes(), steps[i], dec[i].tobytes(),
+                    curv[i].tobytes()) == (
+                want[lz.STEPSIZE].tobytes(), int(want[lz.COUNT]),
+                want[lz.DEC_ERR].tobytes(), want[lz.CURV_ERR].tobytes()), i
+
+
+def _lbfgs_problem(device, dtype=torch.float64):
+    """bench's 2-D Poisson problem on a grid, the L-BFGS stage's strategy."""
     import neuralpde_tpu_torch as npde
-    from neuralpde_tpu_torch.train import LBFGS
+    from neuralpde_tpu_torch.accuracy import poisson_2d_system
+
+    torch.manual_seed(0)
+    return npde.discretize(poisson_2d_system(), npde.PhysicsInformedNN(
+        npde.mlp([2, 16, 16, 1], dtype=dtype), npde.GridTraining(1 / 15),
+        derivative="jet", dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+def test_captured_lbfgs_solve_matches_the_cpu(cuda):
+    """`solve(..., npde.lbfgs(), inner_steps=10)` in float64: the step runs
+    once, is captured (its trials IF nodes) and replayed; the parameters
+    match the CPU run's within LBFGS_CARD_VS_CPU_RTOL, with the same
+    line-search steps a step."""
+    import neuralpde_tpu_torch as npde
+
+    card = _lbfgs_problem(cuda)
+    cpu = _lbfgs_problem("cpu").with_params(
+        {k: v.cpu() for k, v in card.init_params.items()})
+    counts = {}
+    for name, prob in (("card", card), ("cpu", cpu)):
+        seen = []
+
+        def record(it, loss, aux, seen=seen):
+            seen.append(loss)
+
+        res = npde.solve(prob, npde.lbfgs(), maxiters=20, inner_steps=10,
+                         callback=record)
+        counts[name] = (res, seen)
+    res, _ = counts["card"]
+    want, _ = counts["cpu"]
+    assert res.aux["cuda_graph"]["captures"] == 1
+    assert res.aux["cuda_graph"]["replays"] == 19
+    for k, v in want.u.items():
+        got = res.u[k].cpu()
+        assert float((got - v).abs().max() / v.abs().max()) < (
+            LBFGS_CARD_VS_CPU_RTOL), k
+    assert res.history[-1] < res.history[0]
+
+
+@pytest.mark.cuda
+def test_captured_lbfgs_steps_count_searches_like_the_cpu(cuda):
+    """Step by step through `GraphedSteps` (the first step eager, then
+    replays) against the CPU's steps: equal line-search steps and
+    stepsizes within LBFGS_CARD_VS_CPU_RTOL."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
+
+    out = {}
+    card = _lbfgs_problem(cuda)
+    cpu = _lbfgs_problem("cpu").with_params(
+        {k: v.cpu() for k, v in card.init_params.items()})
+    for name, prob in (("card", card), ("cpu", cpu)):
+        rep = prob.pinnrep
+        lf = rep.loss_functions
+        step = npde.make_step(prob.loss, npde.lbfgs(), rep.adaloss,
+                              lf.pde_loss_functions, lf.bc_loss_functions)
+        carry = step.init(prob.init_params, rep.adaloss.init_state(
+            len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
+            rep.device))
+        gen = torch.Generator(device=rep.device).manual_seed(0)
+        opt = carry[1]
+        runner = GraphedSteps(step, carry, gen) if name == "card" else None
+        record = []
+        with _side_stream(next(iter(carry[0].values()))):
+            for i in range(8):
+                if runner is not None:
+                    runner(i)
+                else:
+                    carry, _ = step(carry, gen)
+                st = opt.state[opt._params[0]]
+                record.append((int(st["num_linesearch_steps"]),
+                               float(st["learning_rate"])))
+        out[name] = record
+    assert [c for c, _ in out["card"]] == [c for c, _ in out["cpu"]]
+    for (_, a), (_, b) in zip(out["card"], out["cpu"]):
+        assert abs(a - b) <= LBFGS_CARD_VS_CPU_RTOL * abs(b)
+    assert any(c > 1 for c, _ in out["cpu"])
+
+
+@pytest.mark.cuda
+def test_a_replayed_lbfgs_block_reads_nothing_on_the_host(cuda):
+    """Replays of the captured L-BFGS step under
+    `torch.cuda.set_sync_debug_mode("error")`: no host synchronisation."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.train import GraphedSteps, _side_stream
+
+    prob = _lbfgs_problem(cuda, torch.float32)
+    rep = prob.pinnrep
+    lf = rep.loss_functions
+    step = npde.make_step(prob.loss, npde.lbfgs(), rep.adaloss,
+                          lf.pde_loss_functions, lf.bc_loss_functions)
+    carry = step.init(prob.init_params, rep.adaloss.init_state(
+        len(lf.pde_loss_functions), len(lf.bc_loss_functions), rep.dtype,
+        rep.device))
+    runner = GraphedSteps(step, carry,
+                          torch.Generator(device=cuda).manual_seed(0))
+    with _side_stream(next(iter(carry[0].values()))):
+        runner(0)
+        runner(1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(2, 12):
+                loss, _ = runner(i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    stats = runner.stats()
+    # step 1 is captured and replayed at once, steps 2-11 replay
+    assert stats["captures"] == 1 and stats["replays"] == 11
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_lbfgs_checkpoint_of_the_saved_layout_restores_and_continues(
+        cuda, tmp_path):
+    """A checkpoint holds `LBFGS`'s state in its saved keys and dtypes (the
+    line search's scratch is not saved); a run resumed from it continues
+    as the straight run does (graph against eager steps: rtol 1e-6)."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _lbfgs_problem(cuda)
+    straight = npde.solve(prob, npde.lbfgs(), maxiters=12, inner_steps=3)
+    first = npde.solve(prob, npde.lbfgs(), maxiters=6, inner_steps=3,
+                       checkpoint_dir=str(tmp_path), checkpoint_every=6)
+    with open(tmp_path / "meta.json") as f:
+        layout = json.load(f)["opt_state"]["layout"]
+    n = len(prob.init_params)
+    assert set(layout) == (
+        {f"0.{k}" for k in LBFGS_STATE_KEYS[1]}
+        | {f"{i}.{k}" for i in range(n) for k in LBFGS_STATE_KEYS[0]})
+    saved = np.load(tmp_path / "opt_state.npz")
+    assert saved["0.count"].dtype == np.int64 and int(saved["0.count"]) == 6
+    resumed = npde.solve(prob, npde.lbfgs(), maxiters=12, inner_steps=3,
+                         checkpoint_dir=str(tmp_path))
+    assert first.iterations == 6 and resumed.iterations == 12
+    for k, v in straight.u.items():
+        torch.testing.assert_close(resumed.u[k], v, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_captured_lbfgs_ensemble_draws_as_its_eager_steps(cuda, monkeypatch):
+    """`solve_ensemble` with `npde.lbfgs()` on `StochasticTraining`: each
+    member's searches draw its points again from graph-safe generator
+    states set before each replay; the captured run ends where the same
+    steps run eagerly end (graph against eager steps: rtol 1e-6), and its
+    generator advanced as theirs."""
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.parallel import ensemble
+    from neuralpde_tpu_torch.train import GraphedSteps
+
+    class Eager(GraphedSteps):
+        def __call__(self, iteration):
+            return self.step.run(self.theta, self.opt, self.ada_state,
+                                 self.generator,
+                                 self.step.reweights(iteration))
+
+    prob = _dense_problem(cuda, npde.StochasticTraining(64))
+    out = []
+    for runner in (GraphedSteps, Eager):
+        monkeypatch.setattr(ensemble, "GraphedSteps", runner)
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        res = npde.solve_ensemble(prob, npde.lbfgs(), maxiters=6,
+                                  inner_steps=3, n_ensemble=2, generator=gen)
+        out.append((res, gen.get_offset()))
+    (graphed, g_offset), (eager, e_offset) = out
+    assert graphed.aux["cuda_graph"]["captures"] == 1
+    assert graphed.aux["cuda_graph"]["replays"] == 5
+    assert g_offset == e_offset
+    for k, v in eager.members.items():
+        torch.testing.assert_close(graphed.members[k], v, rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_a_torch_lbfgs_factory_still_trains_on_the_card(cuda):
+    """A user's `torch.optim.LBFGS` reads the host: its steps run eagerly
+    and descend."""
+    import neuralpde_tpu_torch as npde
 
     prob = _dense_problem(cuda, npde.GridTraining(0.1))
-    res = npde.solve(prob, npde.lbfgs(), maxiters=5)
-    assert res.aux["cuda_graph"] == {"captures": 0, "capture_seconds": 0.0,
-                                     "replays": 0}
-    assert res.history[-1] < res.history[0]
-    lf = prob.pinnrep.loss_functions
-    step = npde.make_step(prob.loss, npde.lbfgs(), prob.pinnrep.adaloss,
-                          lf.pde_loss_functions, lf.bc_loss_functions)
-    carry = step.init(prob.init_params, prob.pinnrep.adaloss.init_state(
-        len(lf.pde_loss_functions), len(lf.bc_loss_functions), torch.float32,
-        cuda))
-    opt = carry[1]
-    assert isinstance(opt, LBFGS)
-    generator = torch.Generator(device=cuda).manual_seed(0)
-    for _ in range(3):
-        carry, _ = step(carry, generator)
-    st = opt.state[opt._params[0]]
-    assert int(st["count"]) == 3 and int(st["num_linesearch_steps"]) >= 1
-    assert all(v.device.type == "cuda" for v in st.values())
     res = npde.solve(prob, lambda ps: torch.optim.LBFGS(
         list(ps), max_iter=1, max_eval=21, line_search_fn="strong_wolfe"),
         maxiters=5)
+    assert res.aux["cuda_graph"]["captures"] == 0
     assert res.history[-1] < res.history[0]
 
 
