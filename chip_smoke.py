@@ -15,9 +15,10 @@ the ODE/DAE solver surface, the trial-function zoo (FBPINN, KAN, DGM,
 a wrapped `torch.nn.Module`) with the variational formulations (hp-VPINN
 `WeakTraining`, Deep Ritz), the stochastic layer (SDE solvers, HMC/NUTS,
 the Bayesian PINNs), the operator layer (DeepONet, FNO, PINOODE,
-PINOPDE, ensembles), scale-out and export, and the example programs of
-`neuralpde_tpu_torch/examples/`, in phases that each print their own
-lines, their seconds and the memory left allocated, and raise on failure:
+PINOPDE, ensembles), scale-out and export, the example programs of
+`neuralpde_tpu_torch/examples/` and `bench_torch.py`'s rates, in phases
+that each print their own lines, their seconds and the memory left
+allocated, and raise on failure:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
 2. build: the kernel library from `neuralpde_tpu_torch/csrc/` with nvcc;
@@ -169,8 +170,14 @@ lines, their seconds and the memory left allocated, and raise on failure:
     ms a step in turns: captured, the same steps eagerly, and
     `torch.optim.LBFGS` passed as a factory (evaluations a step, IF
     bodies entered and skipped, capture seconds, peak memory).
+37. bench: `bench_torch.py`'s default line without its accuracy suite
+    (whose functions phases 9 to 11 run), at bench's sizes with 3 timed
+    steps a rate: the dense w64, w128 and w256 steps and the SPINN step
+    through `solve`'s captured graph, the TF32 pair, the FLOP counts, the
+    CPU baseline and the float32 and TF32 matmul ceilings; every key, finite
+    positive numbers, each mfu_pct in (0, 100].
 
-Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 36 train through
+Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 37 train through
 `solve`, which on the card runs each kind of step once as it is, then
 captures it as a CUDA graph and replays it: a wrapper's counter sees the
 eager step and the capture, and each replay reports the launches of its
@@ -179,8 +186,8 @@ HMC draws and of Gauss-Newton's inner iterations). The JSON line of
 kernels sums, over the counted phases, the wrappers' launches (the eager
 paths of phases 5, 6, 8 and 20, phases 18 and 21 to 23, phase 26's jet
 sampler, phase 31's solve under the mesh, the example programs' solves in
-phases 33 and 34, the pages of phase 35 and phase 36's L-BFGS runs, each
-counted from 0 just
+phases 33 and 34, the pages of phase 35, phase 36's L-BFGS runs and
+phase 37's bench rates, each counted from 0 just
 before its solve, sampler or page and read just after, with the forward
 and backward kernels required wherever the path takes second derivatives
 by Taylor mode) and the launches of every replay in those phases; a
@@ -287,7 +294,7 @@ ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
 # summed in the kernels line
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35, 36)
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35, 36, 37)
 # memory the docs pages (phase 35) may leave allocated beyond phase 34's:
 # the quadrature rules kept on the device per dtype (`rule_tensors`)
 DOCS_MEMORY_SLACK = 64 * 2**20
@@ -654,37 +661,6 @@ def _bound(name: str, shape, dtype) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def bench_problem(batch: int, microbatch: int, device, *, init_params=None,
-                  sampler=None, matmul_precision=None):
-    """`bench.py`'s 2-D Poisson training problem, in the port."""
-    import neuralpde_tpu_torch as npde
-    from neuralpde_tpu_torch import (
-        DepVar, Differential, Domain, Eq, Interval, PDESystem,
-        PhysicsInformedNN, StochasticTraining, discretize, mlp, symbols,
-    )
-
-    x, y = symbols("x y")
-    u = DepVar("u")
-    Dxx = Differential(x) ** 2
-    Dyy = Differential(y) ** 2
-    eq = Eq(Dxx(u(x, y)) + Dyy(u(x, y)),
-            -npde.sin(np.pi * x) * npde.sin(np.pi * y))
-    bcs = [Eq(u(0.0, y), 0.0), Eq(u(1.0, y), 0.0),
-           Eq(u(x, 0.0), 0.0), Eq(u(x, 1.0), 0.0)]
-    system = PDESystem(eq, bcs,
-                       [Domain(x, Interval(0, 1)), Domain(y, Interval(0, 1))],
-                       [x, y], [u(x, y)])
-    strategy = StochasticTraining(batch, bcs_points=batch // 8,
-                                  microbatch=microbatch)
-    if sampler is not None:
-        strategy.sampler = sampler
-    disc = PhysicsInformedNN(mlp([2, HIDDEN, HIDDEN, 1]), strategy,
-                             derivative="jet", dtype=torch.float32,
-                             device=device, init_params=init_params,
-                             matmul_precision=matmul_precision)
-    return discretize(system, disc)
-
-
 def _loss_and_grad_norm(prob) -> tuple[float, float]:
     from neuralpde_tpu_torch import matmul_precision
 
@@ -731,21 +707,25 @@ def phase_card_vs_cpu() -> None:
     points = torch.Generator()
 
     def build(device, init):
+        from bench_torch import poisson_problem
+
         points.manual_seed(1)
-        return bench_problem(CHECK_BATCH, CHECK_MICROBATCH, device,
-                             init_params=init,
-                             sampler=_cpu_points_sampler(points),
-                             matmul_precision="highest")
+        prob = poisson_problem(CHECK_BATCH, microbatch=CHECK_MICROBATCH,
+                               device=device, init_params=init,
+                               matmul_precision="highest")
+        prob.pinnrep.strategy.sampler = _cpu_points_sampler(points)
+        return prob
 
     _card_vs_cpu_problem(f"batch {CHECK_BATCH} microbatch {CHECK_MICROBATCH}"
                          " f32 highest", build, "card-vs-cpu")
 
 
 def phase_main_path(card: str) -> dict:
+    from bench_torch import poisson_problem
     from neuralpde_tpu_torch import adam, make_step
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
 
-    prob = bench_problem(BATCH, MICROBATCH, "cuda")
+    prob = poisson_problem(BATCH, microbatch=MICROBATCH)
     pinnrep = prob.pinnrep
     lf = pinnrep.loss_functions
     step = make_step(prob.loss, adam(1e-3), pinnrep.adaloss,
@@ -962,34 +942,29 @@ def phase_separable_accuracy(card: str) -> dict:
 
 
 def phase_gauss_newton(card: str) -> None:
-    """accuracy_suite item 2: LM with LSQR, float64 scalars, on a float32
-    separable problem.  Each outer iteration runs two LSQR steps as they
-    are, captures one as a CUDA graph and replays it for the rest; a
-    counter sees the captured launches once, not their replays, so this
-    phase's counts stay out of the kernels line."""
-    from neuralpde_tpu_torch import solve_gauss_newton
-    from neuralpde_tpu_torch.accuracy import poisson_rel_l2, poisson_spinn
+    """accuracy_suite item 2 (`accuracy.gauss_newton_rel_l2`): LM with
+    LSQR, float64 scalars, on a float32 separable problem.  Each outer
+    iteration runs two LSQR steps as they are, captures one as a CUDA graph
+    and replays it for the rest; a counter sees the captured launches once,
+    not their replays, so this phase's counts stay out of the kernels
+    line."""
+    from neuralpde_tpu_torch.accuracy import gauss_newton_rel_l2
     from neuralpde_tpu_torch.gauss_newton import _EAGER_STEPS
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
 
-    prob, net = poisson_spinn(33, 24, 24)
     tj.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = solve_gauss_newton(prob, maxiters=GN_MAXITERS, cg_iters=GN_CG_ITERS,
-                             solver="lsqr", scalar_dtype=torch.float64)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    r = gauss_newton_rel_l2(maxiters=GN_MAXITERS, cg_iters=GN_CG_ITERS)
     counts = tj.launch_counts()
-    rel = poisson_rel_l2(net, res.u)
-    hist = res.history
+    rel, seconds, iters, hist = (r["rel_l2"], r["seconds"], r["iterations"],
+                                 r["history"])
     print(f"[gauss-newton] mlp([1,24,24,24]) per axis, 33^2 grid, f32 "
           f"problem, LSQR {GN_CG_ITERS} iterations with f64 scalars: "
-          f"{res.iterations} outer iterations in {seconds:.2f} s "
-          f"({seconds / max(res.iterations, 1):.3f} s each); objective "
+          f"{iters} outer iterations in {seconds:.2f} s "
+          f"({seconds / max(iters, 1):.3f} s each); objective "
           f"{hist[0]:.4e} -> {hist[-1]:.4e}; rel L2 {rel:.4e} (JAX reference "
           f"on TPU v5e at 200 iterations: {JAX_RECORD['gn_rel_l2']}); "
           f"launches counted, eager and at capture: {counts}, besides "
-          f"{res.iterations} x {GN_CG_ITERS - _EAGER_STEPS} uncounted graph "
+          f"{iters} x {GN_CG_ITERS - _EAGER_STEPS} uncounted graph "
           f"replays of one LSQR step; {card}")
     if not rel < 1e-3:
         raise AssertionError(f"gauss-newton: rel L2 {rel} >= 1e-3")
@@ -1038,6 +1013,7 @@ def phase_dense_solve(card: str) -> None:
     """bench's dense headline through `solve`: the captured step against
     eager steps, fresh points per replay, then timed blocks and a profile
     of one block."""
+    from bench_torch import poisson_problem
     from neuralpde_tpu_torch import adam, make_step, solve
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     from neuralpde_tpu_torch.ops.sampling import uniform_random
@@ -1053,7 +1029,8 @@ def phase_dense_solve(card: str) -> None:
             drawn.copy_(pts[:, :8])
         return pts
 
-    prob = bench_problem(BATCH, MICROBATCH, "cuda", sampler=sampler)
+    prob = poisson_problem(BATCH, microbatch=MICROBATCH)
+    prob.pinnrep.strategy.sampler = sampler
     pinnrep = prob.pinnrep
     lf = pinnrep.loss_functions
 
@@ -3177,6 +3154,7 @@ def scale_out_rank(rank: int, world: int, store: str) -> None:
     JSON line with its ms a step."""
     import torch.distributed as dist
 
+    from bench_torch import poisson_problem
     from neuralpde_tpu_torch.parallel.distributed import (
         initialize_distributed,
     )
@@ -3185,7 +3163,7 @@ def scale_out_rank(rank: int, world: int, store: str) -> None:
     initialize_distributed(f"file://{store}", world, rank)
     try:
         mesh = make_mesh()
-        prob = bench_problem(BATCH, MICROBATCH, "cuda")
+        prob = poisson_problem(BATCH, microbatch=MICROBATCH)
         res, ms = _scale_solve(prob, mesh, SCALE_RANK_STEPS, SCALE_BLOCK)
     finally:
         dist.destroy_process_group()
@@ -3234,6 +3212,7 @@ def phase_scale_out(card: str) -> dict:
     import torch.distributed as dist
 
     import neuralpde_tpu_torch as npde
+    from bench_torch import poisson_problem
     from neuralpde_tpu_torch import accuracy
     from neuralpde_tpu_torch.bayesian import hmc
     from neuralpde_tpu_torch.compile.lower import depvar_params
@@ -3250,7 +3229,7 @@ def phase_scale_out(card: str) -> dict:
         mesh = make_mesh()
         print(f"[scale-out] NCCL process group of {dist.get_world_size()} "
               f"rank(s), mesh {mesh.shape} on {mesh.device}")
-        prob = bench_problem(BATCH, MICROBATCH, "cuda")
+        prob = poisson_problem(BATCH, microbatch=MICROBATCH)
 
         # the first step (eager), the capture, then replays in turns
         # without, under, under and without the mesh: the collective's cost
@@ -3961,6 +3940,40 @@ def phase_lbfgs(card: str) -> dict:
     return total
 
 
+BENCH_STEPS = 3                 # timed steps of each rate in phase 37
+
+
+def phase_bench(card: str) -> dict:
+    """`bench_torch.throughput_fields` at bench's sizes with BENCH_STEPS
+    timed steps each (the accuracy suite's functions run in phases 9-11):
+    every key, finite positive numbers, each mfu_pct in (0, 100]."""
+    import bench_torch
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    tj.reset_launch_counts()
+    t0 = time.perf_counter()
+    fields = bench_torch.throughput_fields(steps=BENCH_STEPS)
+    seconds = time.perf_counter() - t0
+    counts = tj.launch_counts()
+    print(f"[bench] bench_torch.throughput_fields(steps={BENCH_STEPS}) in "
+          f"{seconds:.1f} s: {json.dumps(fields)}; launches counted "
+          f"{counts}; {card}")
+    want = set(bench_torch.THROUGHPUT_KEYS) | set(bench_torch.ADDED)
+    if set(fields) != want:
+        raise AssertionError(f"bench: keys {sorted(set(fields) ^ want)} "
+                             f"missing or unexpected")
+    for key, value in fields.items():
+        if key in ("metric", "unit", "device"):
+            continue
+        if not (math.isfinite(value) and value > 0):
+            raise AssertionError(f"bench: {key} = {value}")
+        if key.endswith("mfu_pct") and not value <= 100:
+            raise AssertionError(f"bench: {key} = {value} > 100")
+    _require_launched("bench", counts, "tanh_jet2_forward",
+                      "tanh_jet2_backward")
+    return counts
+
+
 def main() -> int:
     name, smi = phase_device()
     card = f"card: {smi}"
@@ -4000,7 +4013,8 @@ def main() -> int:
             33: lambda: phase_beltrami(card),
             34: lambda: phase_examples(card),
             35: lambda: phase_docs(card),
-            36: lambda: phase_lbfgs(card)}
+            36: lambda: phase_lbfgs(card),
+            37: lambda: phase_bench(card)}
     totals: dict = {}
     checked = set(CHECK_SHAPES)
     allocated = {}

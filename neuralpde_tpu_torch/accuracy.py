@@ -9,16 +9,19 @@ solution, the number the port is held to beside the JAX package's record:
   stages of 15,000 Adam steps (causal eps 1e2, 1e3, 1e4), against the
   spectral reference of `examples/allen_cahn_spinn.py`.
 
-Item 2 (Gauss-Newton) is `solve_gauss_newton` on `poisson_spinn(33, 24, 24)`.
+Item 2 (`gn_rel_l2`) is `gauss_newton_rel_l2`: `solve_gauss_newton` on
+`poisson_spinn(33, 24, 24)`.
 
 Bench's dense recipes:
 
 * `dense_allen_cahn`: ``accuracy_dense_full``, the dense causal Allen-Cahn
   recipe (`CausalTraining`, three stages of 333k, 333k and 444k Adam
   steps, causal eps 1, 10, 100), JAX's best accuracy;
-* `time_to_l2_hard` and `time_to_l2_hybrid`: ``--to-l2-hard`` and
-  ``--to-l2-hybrid``, seconds to an RMS error below 1e-3 on the 2-D
-  Poisson problem (hard-constrained Adam; Adam then L-BFGS).
+* `time_to_l2`, `time_to_l2_hard`, `time_to_l2_hybrid` and
+  `time_to_l2_spinn`: ``--to-l2``, ``--to-l2-hard``, ``--to-l2-hybrid``
+  and ``--to-l2-spinn``, seconds to an RMS error below 1e-3 on the 2-D
+  Poisson problem (penalized Adam; hard-constrained Adam; Adam then
+  L-BFGS; the hard-constrained SPINN).
 
 The problems of the trial-function zoo and the weak forms, each with its
 error measure: `two_scale_ode` and `multiscale_laplace`
@@ -54,7 +57,7 @@ from . import (
     GridTraining, Interval, NonAdaptiveLoss, PDESystem, PeriodicEmbedding,
     PhysicsInformedNN, SeparableNet, SeparableTraining, StochasticTraining,
     Transformed, adam, cos, depvar_params, discretize, discretize_ritz, lbfgs,
-    mlp, parameters, sin, solve, symbols, tanh,
+    mlp, parameters, sin, solve, solve_gauss_newton, symbols, tanh,
 )
 from .config import matmul_precision
 
@@ -109,12 +112,28 @@ def poisson_spinn_rel_l2(*, seed: int = 0, dtype=torch.float32,
     100 steps.  Returns ``{"rel_l2", "seconds", "history"}``."""
     prob, net = poisson_spinn(128, dtype=dtype, device=device, seed=seed)
     t0 = time.perf_counter()
-    res = solve(prob, adam(2e-3), maxiters=maxiters, inner_steps=100)
-    if prob.pinnrep.device.type == "cuda":
-        torch.cuda.synchronize()
+    res = solve(prob, adam(2e-3), maxiters=maxiters,
+                inner_steps=min(100, maxiters))
+    _synchronize(prob)
     seconds = time.perf_counter() - t0
     return {"rel_l2": poisson_rel_l2(net, res.u), "seconds": seconds,
             "history": res.history}
+
+
+def gauss_newton_rel_l2(*, maxiters: int = 200, cg_iters: int = 200,
+                        device="cuda") -> dict:
+    """`accuracy_suite` item 2: Levenberg-Marquardt with ``cg_iters``
+    LSQR iterations (float64 scalars) on the float32 `poisson_spinn(33, 24,
+    24)` for ``maxiters`` outer iterations.  Returns ``{"rel_l2",
+    "seconds", "iterations", "history"}``."""
+    prob, net = poisson_spinn(33, 24, 24, device=device)
+    t0 = time.perf_counter()
+    res = solve_gauss_newton(prob, maxiters=maxiters, cg_iters=cg_iters,
+                             solver="lsqr", scalar_dtype=torch.float64)
+    _synchronize(prob)
+    seconds = time.perf_counter() - t0
+    return {"rel_l2": poisson_rel_l2(net, res.u), "seconds": seconds,
+            "iterations": res.iterations, "history": res.history}
 
 
 def allen_cahn_system() -> PDESystem:
@@ -349,6 +368,41 @@ def _hard_box(c, o):
     return c[0:1] * (1 - c[0:1]) * c[1:2] * (1 - c[1:2]) * o
 
 
+def _adam_to_l2(prob, target: float, max_seconds: float, warm: int,
+                chunk: int = 500, rms=poisson_rms) -> dict:
+    """Adam(2e-3) in solves of ``chunk`` steps (blocks of 100) until
+    ``rms(prob, theta)`` is below ``target`` or ``max_seconds`` have passed,
+    after an untimed solve of ``warm`` steps."""
+    solve(prob, adam(2e-3), maxiters=warm, inner_steps=min(100, warm))
+    _synchronize(prob)
+    theta, it, trace = prob.init_params, 0, []
+    t0 = time.perf_counter()
+    while True:
+        theta = solve(prob.with_params(theta), adam(2e-3), maxiters=chunk,
+                      inner_steps=100).u
+        it += chunk
+        err = rms(prob, theta)
+        trace.append((it, err, time.perf_counter() - t0))
+        if err < target or trace[-1][2] > max_seconds:
+            break
+    return {"seconds": trace[-1][2] if err < target else None,
+            "iterations": it, "rms": err, "trace": trace}
+
+
+def time_to_l2(target: float = 1e-3, max_seconds: float = 120.0, *,
+               device="cuda") -> dict:
+    """`bench.py`'s ``time_to_l2``: ``mlp([2, 64, 64, 1])`` with the four
+    boundary losses, ``StochasticTraining(8192, bcs_points=1024)``, jet,
+    Adam(2e-3) in solves of 500 steps (blocks of 100) until the RMS error on
+    the 51^2 grid is below ``target``.  One untimed solve of 50 steps warms
+    up.  Returns ``{"seconds" (None if the cap was hit), "iterations",
+    "rms", "trace": [(iterations, rms, seconds), ...]}``."""
+    prob = discretize(poisson_2d_system(), PhysicsInformedNN(
+        mlp([2, 64, 64, 1]), StochasticTraining(8192, bcs_points=1024),
+        derivative="jet", device=device))
+    return _adam_to_l2(prob, target, max_seconds, warm=50)
+
+
 def time_to_l2_hard(target: float = 1e-3, max_seconds: float = 60.0, *,
                     points: int = 8192, device="cuda", seed: int = 0) -> dict:
     """`bench.py`'s ``time_to_l2_hard``: ``Transformed(mlp([2, 64, 64, 1]),
@@ -361,20 +415,7 @@ def time_to_l2_hard(target: float = 1e-3, max_seconds: float = 60.0, *,
     prob = discretize(poisson_2d_system(), PhysicsInformedNN(
         net, StochasticTraining(points, bcs_points=points // 8),
         derivative="jet", device=device, seed=seed))
-    solve(prob, adam(2e-3), maxiters=500, inner_steps=100)
-    _synchronize(prob)
-    theta, it, trace = prob.init_params, 0, []
-    t0 = time.perf_counter()
-    while True:
-        theta = solve(prob.with_params(theta), adam(2e-3), maxiters=500,
-                      inner_steps=100).u
-        it += 500
-        rms = poisson_rms(prob, theta)
-        trace.append((it, rms, time.perf_counter() - t0))
-        if rms < target or trace[-1][2] > max_seconds:
-            break
-    return {"seconds": trace[-1][2] if rms < target else None,
-            "iterations": it, "rms": rms, "trace": trace}
+    return _adam_to_l2(prob, target, max_seconds, warm=500)
 
 
 def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
@@ -421,6 +462,30 @@ def time_to_l2_hybrid(target: float = 1e-3, max_seconds: float = 120.0, *,
             "iterations": it, "rms": rms, "adam_seconds": adam_seconds,
             "lbfgs_ms_per_step": 1e3 * lbfgs_seconds / (it - adam_iters),
             "trace": trace}
+
+
+def time_to_l2_spinn(target: float = 1e-3, max_seconds: float = 60.0, *,
+                     device="cuda") -> dict:
+    """`bench.py`'s ``time_to_l2_spinn``: `poisson_spinn` on the 128^2
+    grid (rank 64, hard constraints), Adam(2e-3) in solves of 100 steps
+    until the RMS error of ``net.grid`` on the 51^2 grid is below
+    ``target``.  One untimed solve of 100 steps warms up.  Returns
+    ``{"seconds" (None if the cap was hit), "iterations", "rms",
+    "trace"}``."""
+    prob, net = poisson_spinn(128, device=device)
+    xs = np.linspace(0, 1, 51)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    want = np.sin(np.pi * X) * np.sin(np.pi * Y) / (2 * np.pi ** 2)
+
+    def rms(prob, theta):
+        nodes = torch.tensor(xs, dtype=torch.float32, device=device)
+        with torch.no_grad(), matmul_precision("highest"):
+            got = net.grid(depvar_params(theta), [nodes, nodes])
+        got = got.double().cpu().numpy()
+        return float(np.sqrt(np.mean((got - want) ** 2)))
+
+    return _adam_to_l2(prob, target, max_seconds, warm=100, chunk=100,
+                       rms=rms)
 
 
 # ---------------------------------------------------------------------------

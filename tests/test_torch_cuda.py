@@ -3,7 +3,8 @@ Gauss-Newton's CUDA-graph inner solve against the same solve step by step;
 and `solve`'s captured training step (eager against replayed, fresh points
 per replay, the reweighting graph, a capture that fails); the `zoom_step`
 kernel against its plain version, and `npde.lbfgs()` captured (against the
-CPU, with no host read in a block, restored from a checkpoint).
+CPU, with no host read in a block, restored from a checkpoint); one rate of
+`bench_torch.py` and its matmul-ceiling probe.
 Graph against eager steps: rtol 1e-6 (the same kernels on the same inputs).
 
 These tests need a CUDA device and skip without one.  The file imports no
@@ -1137,3 +1138,19 @@ def test_solve_returns_the_memory_of_its_graph(cuda):
         del res
     assert peaks[0] - before > 2**20             # the step's activations
     assert abs(peaks[1] - peaks[0]) < 2**20, peaks
+
+
+@pytest.mark.cuda
+def test_bench_spinn_rate_and_the_matmul_probe_run_on_the_card(cuda):
+    """`bench_torch.spinn_points_per_sec` through `solve`'s graph on a
+    1024^2 grid and its FLOPs a point, and the probe's float32 chain at
+    1024^3 (TF32 off, so under the card's 67 TFLOP/s float32 peak)."""
+    import bench_torch
+
+    pps = bench_torch.spinn_points_per_sec(n=1024, steps=3)
+    assert np.isfinite(pps) and pps > 0
+    assert bench_torch.spinn_flops_per_point(n=1024) > 0
+    probe = bench_torch._probe()
+    tflops, seconds = probe.chain_tflops(1024, 1024, 1024, "float32", reps=20)
+    assert 0 < tflops < probe.PEAK_TFLOPS["float32"] and seconds > 0
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -189,7 +189,9 @@ def test_import_leaves_jax_out():
 
 
 def test_no_module_of_the_port_imports_jax():
-    for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
+    for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py",
+                 PORT.parent / "bench_torch.py",
+                 PORT.parent / "scripts" / "torch_probe_matmul_peak.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
