@@ -111,11 +111,13 @@ ADDED = ("dense_tf32_tflops", "dense_tf32_mfu_pct", "spinn_tf32_tflops",
          "device", "power_limit_w")
 
 
-def _require_card(device) -> None:
+def require_card(device) -> None:
+    """Raise where ``device`` is the card and there is none (the port's
+    measurement scripts never carry on on the CPU)."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("bench_torch: needs a CUDA card "
-                           "(torch.cuda.is_available() is False); the "
-                           "functions take device='cpu' for tests")
+        raise RuntimeError("needs a CUDA card (torch.cuda.is_available() is "
+                           "False); the functions take device='cpu' for "
+                           "tests")
 
 
 @functools.cache
@@ -149,7 +151,7 @@ def _dense_problem(system, batch: int, hidden: int, *, microbatch, dtype,
                    device, init_params, **kw):
     """``system`` on ``mlp([2, hidden, hidden, 1])`` with
     ``StochasticTraining(batch, bcs_points=batch // 8, microbatch)``."""
-    _require_card(device)
+    require_card(device)
     return npde.discretize(system, npde.PhysicsInformedNN(
         npde.mlp([2, hidden, hidden, 1], dtype=dtype),
         npde.StochasticTraining(batch, bcs_points=batch // 8,
@@ -206,24 +208,35 @@ def step_flops(prob, optimizer) -> float:
     return float(counter.get_total_flops())
 
 
-def _timed_steps(prob, optimizer, steps: int, what: str) -> float:
-    """Seconds of ``steps`` steps replayed from `solve`'s captured graph:
-    the second of two blocks of ``steps`` (``steps`` >= 2, so the first
-    block holds the eager step, the capture and a replay)."""
-    if steps < 2:
-        raise ValueError(f"steps must be at least 2, got {steps}")
+def block_seconds(prob, optimizer, steps: int, blocks: int,
+                  what: str) -> list[float]:
+    """Seconds of each block of ``steps`` steps after the first of one
+    `solve` of ``blocks`` blocks, replayed from its captured graph (the
+    first block holds the eager step, the capture and a replay, so
+    ``steps`` >= 2 and ``blocks`` >= 2).  A block's time runs between the
+    block callbacks, whose read of the loss waits for the card."""
+    if steps < 2 or blocks < 2:
+        raise ValueError(f"steps and blocks must be at least 2, got {steps} "
+                         f"and {blocks}")
     stamps = []
     t0 = time.perf_counter()
-    res = npde.solve(prob, optimizer, maxiters=2 * steps, inner_steps=steps,
+    res = npde.solve(prob, optimizer, maxiters=blocks * steps,
+                     inner_steps=steps,
                      callback=lambda it, loss, aux: stamps.append(
                          (time.perf_counter(), loss)))
-    graph = res.aux.get("cuda_graph")
+    seconds = [b[0] - a[0] for a, b in zip(stamps, stamps[1:])]
     print(f"[bench_torch] {what}: first block {stamps[0][0] - t0:.3f} s "
           f"(eager step, capture, replays; captures and their seconds "
-          f"{graph}), then {steps} steps in {stamps[1][0] - stamps[0][0]:.4f}"
-          f" s; losses {stamps[0][1]:.6g} -> {stamps[1][1]:.6g}",
-          file=sys.stderr)
-    return stamps[1][0] - stamps[0][0]
+          f"{res.aux.get('cuda_graph')}), then blocks of {steps} steps in "
+          f"{', '.join(f'{s:.4f}' for s in seconds)} s; losses "
+          f"{stamps[0][1]:.6g} -> {stamps[-1][1]:.6g}", file=sys.stderr)
+    return seconds
+
+
+def timed_steps(prob, optimizer, steps: int, what: str) -> float:
+    """Seconds of ``steps`` steps replayed from `solve`'s captured graph:
+    the second of two blocks of ``steps`` (`block_seconds`)."""
+    return block_seconds(prob, optimizer, steps, 2, what)[0]
 
 
 def poisson_pps(batch: int, hidden: int = HIDDEN, remat: bool = False,
@@ -235,7 +248,7 @@ def poisson_pps(batch: int, hidden: int = HIDDEN, remat: bool = False,
     prob = poisson_problem(batch, hidden, microbatch=microbatch, remat=remat,
                            dtype=dtype, accum=accum,
                            matmul_precision=matmul_precision, device=device)
-    seconds = _timed_steps(
+    seconds = timed_steps(
         prob, npde.adam(1e-3), steps,
         f"poisson batch {batch} microbatch {microbatch} w{hidden} "
         f"{dtype} accum {accum} remat {remat} "
@@ -257,12 +270,12 @@ def spinn_points_per_sec(n: int = SPINN_N, rank: int = SPINN_RANK,
                          device="cuda") -> float:
     """Grid points/s of the separable (SPINN) step on an n x n grid at
     ``rank`` (`accuracy.poisson_spinn`, Adam(2e-3))."""
-    _require_card(device)
+    require_card(device)
     prob, _ = accuracy.poisson_spinn(n, HIDDEN, rank, device=device,
                                      matmul_precision=matmul_precision)
-    seconds = _timed_steps(prob, npde.adam(2e-3), steps,
-                           f"spinn {n}^2 rank {rank} matmul_precision "
-                           f"{matmul_precision}")
+    seconds = timed_steps(prob, npde.adam(2e-3), steps,
+                          f"spinn {n}^2 rank {rank} matmul_precision "
+                          f"{matmul_precision}")
     return n * n * steps / seconds
 
 
@@ -270,7 +283,7 @@ def spinn_flops_per_point(n: int = SPINN_N, rank: int = SPINN_RANK,
                           device="cuda") -> float:
     """GEMM FLOPs a grid point of one eager step of the SPINN problem of
     `spinn_points_per_sec`."""
-    _require_card(device)
+    require_card(device)
     prob, _ = accuracy.poisson_spinn(n, HIDDEN, rank, device=device)
     return step_flops(prob, npde.adam(2e-3)) / (n * n)
 
@@ -279,8 +292,8 @@ def burgers_points_per_sec(batch: int = BATCH, device="cuda") -> float:
     """Points/s of the Burgers step (bench's ``burgers_points_per_sec``):
     ``batch + 3 * (batch // 8)`` a step, microbatch MICROBATCH."""
     prob = burgers_problem(batch, microbatch=MICROBATCH, device=device)
-    seconds = _timed_steps(prob, npde.adam(1e-3), STEPS_MEASURE,
-                           f"burgers batch {batch} microbatch {MICROBATCH}")
+    seconds = timed_steps(prob, npde.adam(1e-3), STEPS_MEASURE,
+                          f"burgers batch {batch} microbatch {MICROBATCH}")
     return (batch + 3 * (batch // 8)) * STEPS_MEASURE / seconds
 
 
@@ -323,7 +336,7 @@ def card_fields(device="cuda") -> dict:
     """``{"device", "power_limit_w"}``: the card's as nvidia-smi reads them;
     on the CPU its model and no power limit."""
     if torch.device(device).type == "cuda":
-        _require_card(device)
+        require_card(device)
         return _probe().card()
     return {"device": cpu_model(), "power_limit_w": None}
 
@@ -346,7 +359,7 @@ def throughput_fields(*, hidden: int = HIDDEN, batch: int = BATCH,
                       device="cuda") -> dict:
     """Every field of the default line but the accuracy suite's, at bench's
     sizes unless told otherwise."""
-    _require_card(device)
+    require_card(device)
     baseline = measure_cpu_baseline(baseline_batch)
     pps = poisson_pps(batch, hidden, steps=steps, microbatch=microbatch,
                       device=device)
@@ -403,7 +416,7 @@ def accuracy_suite(*, poisson_steps: int = 500, gn_iters: int = 200,
     seconds of each.  As in bench, an untimed SPINN solve of 100 steps
     first takes the process's one-time costs (the kernels' build, the CUDA
     and cuBLAS set-up); the seconds hold each solve's graph captures."""
-    _require_card(device)
+    require_card(device)
     accuracy.poisson_spinn_rel_l2(maxiters=min(100, poisson_steps),
                                   device=device)
     spinn = accuracy.poisson_spinn_rel_l2(maxiters=poisson_steps,
@@ -536,7 +549,7 @@ def main(argv=None) -> None:
     if "--baseline" in argv:
         baseline_line()
         return
-    _require_card("cuda")
+    require_card("cuda")
     if "--to-l2" in argv:
         _to_l2_line("to-l2", "to_l2_seconds", accuracy.time_to_l2())
     elif "--burgers" in argv:

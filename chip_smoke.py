@@ -34,7 +34,9 @@ allocated, and raise on failure:
 4. card vs CPU: one loss and gradient of the dense bench problem at batch
    32,768, same parameters and points, on the card and the CPU (plain);
 5. dense main path: one warm-up step and 20 timed steps through
-   `make_step`, then two steps traced by `torch.profiler`;
+   `make_step`, then two steps traced by `torch.profiler`, whose device
+   time `scripts/torch_profile_breakdown.py` breaks down by kernel class
+   (as it does every ``[profile]`` of phases 8, 12 and 33);
 6. transforms: `torch.func.jvp` and `torch.func.vjp` in the parameters of
    a Taylor-mode residual, against the nested-jvp engine, on the card;
 7. separable card vs CPU: loss and gradient norm of bench's SPINN problem
@@ -175,9 +177,21 @@ allocated, and raise on failure:
     steps a rate: the dense w64, w128 and w256 steps and the SPINN step
     through `solve`'s captured graph, the TF32 pair, the FLOP counts, the
     CPU baseline and the float32 and TF32 matmul ceilings; every key, finite
-    positive numbers, each mfu_pct in (0, 100].
+    positive numbers, each mfu_pct in (0, 100];
+38. the measurement scripts (`scripts/torch_*.py`, the twins of the JAX
+    package's TPU scripts), each main function at a smoke budget: the
+    op-level breakdown of the dense step (524,288 points) at 2 steps,
+    weak against strong form at 384^2 nodes at 3 steps, the weak-form
+    accuracy script's strong and hp-adaptive rows of the front problem
+    at a 0.3-s budget, an ensemble of 2, the MFU script's w64 row at a
+    5-s budget, trust region and LSQR at 2 outer iterations, one
+    Allen-Cahn stage at 50 iterations, the NS operator's base row, the
+    PINOPDE families and the field-grid derivatives at 16 nodes at 4
+    steps each; every JSON line parses, has its script's keys and finite
+    numbers; the breakdown's classes sum to its busy time within 1%, with
+    non-zero GEMM and hand-written kernel time.
 
-Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 37 train through
+Phases 9, 11 to 19, 21 to 23, 28 to 31 and 33 to 38 train through
 `solve`, which on the card runs each kind of step once as it is, then
 captures it as a CUDA graph and replays it: a wrapper's counter sees the
 eager step and the capture, and each replay reports the launches of its
@@ -186,8 +200,8 @@ HMC draws and of Gauss-Newton's inner iterations). The JSON line of
 kernels sums, over the counted phases, the wrappers' launches (the eager
 paths of phases 5, 6, 8 and 20, phases 18 and 21 to 23, phase 26's jet
 sampler, phase 31's solve under the mesh, the example programs' solves in
-phases 33 and 34, the pages of phase 35, phase 36's L-BFGS runs and
-phase 37's bench rates, each counted from 0 just
+phases 33 and 34, the pages of phase 35, phase 36's L-BFGS runs,
+phase 37's bench rates and phase 38's scripts, each counted from 0 just
 before its solve, sampler or page and read just after, with the forward
 and backward kernels required wherever the path takes second derivatives
 by Taylor mode) and the launches of every replay in those phases; a
@@ -216,6 +230,8 @@ Taylor-Green runs 1,000 (separable) and 2,000 (dense) of 2 x 20,000.
 from __future__ import annotations
 
 import contextlib
+import functools
+import io
 import json
 import math
 import os
@@ -294,7 +310,8 @@ ADAPTIVE_BATCH = 8_192
 ADAPTIVE_CARD_VS_CPU_RTOL = 1e-4
 CHECKPOINT_RTOL = 1e-6
 # summed in the kernels line
-COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35, 36, 37)
+COUNTED_PHASES = (5, 6, 8, 18, 20, 21, 22, 23, 26, 31, 33, 34, 35, 36, 37,
+                  38)
 # memory the docs pages (phase 35) may leave allocated beyond phase 34's:
 # the quadrature rules kept on the device per dtype (`rule_tensors`)
 DOCS_MEMORY_SLACK = 64 * 2**20
@@ -762,7 +779,8 @@ def phase_main_path(card: str) -> dict:
     _require_falling("main path", values)
     _require_launched("main path", counts, "tanh_jet2_forward",
                       "tanh_jet2_backward")
-    _profile(step, carry, generator, dt / STEPS)
+    _profile(functools.partial(_steps, step, carry, generator, 2), 2,
+             dt / STEPS)
     return counts
 
 
@@ -779,28 +797,31 @@ def _require_launched(what: str, counts: dict, *names) -> None:
             raise AssertionError(f"{what} never launched {name}")
 
 
-def _profile(step, carry, generator, step_s: float) -> None:
-    """Trace two main-path steps: the device's busy time per step against
-    the untraced step time ``step_s``, and the kernels with the most device
-    time."""
+def _steps(step, carry, generator, n: int) -> None:
+    for _ in range(n):
+        carry, _ = step(carry, generator)
+
+
+def _profile(run, n: int, step_s: float) -> dict:
+    """Trace ``run()``, ``n`` steps, and print the breakdown of its device
+    time by kernel class (`scripts/torch_profile_breakdown.py`), the idle
+    share against the traced window, beside the untraced step time
+    ``step_s``."""
     from torch.profiler import ProfilerActivity, profile
 
+    twin = _script("torch_profile_breakdown")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            carry, _ = step(carry, generator)
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-    kernels = sorted(_device_events(prof),
-                     key=lambda e: -e.self_device_time_total)
-    busy_us = _kernel_us(prof)
-    print(f"[profile] device busy {busy_us / 2e3:.2f} ms per step against "
-          f"{step_s * 1e3:.2f} ms untraced: idle share "
-          f"{1 - busy_us / 2e6 / step_s:.3f}")
-    for e in kernels[:12]:
-        print(f"[profile] {100 * e.self_device_time_total / busy_us:5.1f}% "
-              f"{e.self_device_time_total / 2e3:8.3f} ms/step "
-              f"{e.count // 2:6d} calls/step  {e.key[:90]}")
+        traced = (time.perf_counter() - t0) / n
+    bd = twin.breakdown(prof, n, traced)
+    print(f"[profile] {n} steps traced, {traced * 1e3:.3f} ms a step traced "
+          f"against {step_s * 1e3:.3f} ms untraced:")
+    twin.report(bd, "[profile] ")
+    return bd
 
 
 def _rel(got: dict, want: dict) -> float:
@@ -904,7 +925,8 @@ def phase_separable_main(card: str) -> dict:
     _require_falling("separable main path", values)
     _require_launched("separable main path", counts, "tanh_jet2_forward",
                       "tanh_jet2_backward")
-    _profile(step, carry, generator, dt / SPINN_STEPS)
+    _profile(functools.partial(_steps, step, carry, generator, 2), 2,
+             dt / SPINN_STEPS)
     return counts
 
 
@@ -1117,31 +1139,15 @@ def phase_dense_solve(card: str) -> None:
 
 
 def _profile_block(runner, start: int, n: int, step_s: float) -> None:
-    """Trace ``n`` replays of a warmed `GraphedSteps`: the device's busy
-    time per step against the untraced step time ``step_s``."""
+    """`_profile` of ``n`` replays of a warmed `GraphedSteps`."""
     from neuralpde_tpu_torch.train import _side_stream
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def replays():
         with _side_stream(next(iter(runner.theta.values()))):
             for i in range(start, start + n):
                 runner(i)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy_us = _kernel_us(prof)
-    kernels = sorted(_device_events(prof),
-                     key=lambda e: -e.self_device_time_total)
-    print(f"[profile] one block of {n} replays: device busy "
-          f"{busy_us / n / 1e3:.2f} ms per step against {step_s * 1e3:.2f} "
-          f"ms untraced: idle share {1 - busy_us / n / 1e6 / step_s:.3f} "
-          f"(traced wall {1e3 * wall / n:.2f} ms per step)")
-    for e in kernels[:8]:
-        print(f"[profile] {100 * e.self_device_time_total / busy_us:5.1f}% "
-              f"{e.self_device_time_total / n / 1e3:8.3f} ms/step "
-              f"{e.count // n:6d} calls/step  {e.key[:90]}")
+
+    _profile(replays, n, step_s)
 
 
 def _profile_solve(prob, optimizer, steps: int, block: int,
@@ -3666,16 +3672,18 @@ def phase_examples(card: str) -> dict:
     return total
 
 
-def _docs_runner():
-    """`scripts/torch_docs_runner.py`, the runner the CPU tests use too."""
+@functools.cache
+def _script(name: str):
+    """``scripts/<name>.py`` loaded by path: the docs runner and the
+    measurement scripts that the CPU tests load too."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "torch_docs_runner.py")
-    spec = importlib.util.spec_from_file_location("torch_docs_runner", path)
-    runner = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(runner)
-    return runner
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def phase_docs(card: str) -> dict:
@@ -3683,7 +3691,7 @@ def phase_docs(card: str) -> dict:
     written (``DEVICE = "cuda"``).  A page that raises or prints a NaN or an
     inf fails.  Returns the wrappers' launches summed over the pages (the
     replays are counted apart by `main`)."""
-    runner = _docs_runner()
+    runner = _script("torch_docs_runner")
     total: dict = {}
     seconds = 0.0
     for page in runner.pages():
@@ -3974,6 +3982,96 @@ def phase_bench(card: str) -> dict:
     return counts
 
 
+def _numbers(value):
+    """Every number in a JSON value (nested dicts and lists)."""
+    if isinstance(value, dict):
+        for v in value.values():
+            yield from _numbers(v)
+    elif isinstance(value, list):
+        for v in value:
+            yield from _numbers(v)
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        yield value
+
+
+def _script_lines(name: str, run) -> list[dict]:
+    """Run ``run()`` of ``scripts/<name>.py``, echo what it prints, and
+    parse its JSON lines: each must hold exactly the script's ``KEYS``
+    (the JAX script's, the card's name and power limit) and only finite
+    numbers."""
+    keys = set(_script(name).KEYS)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run()
+    seconds = time.perf_counter() - t0
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"[scripts] {name}: {line}")
+    rows = [json.loads(line) for line in printed if line.startswith("{")]
+    if not rows:
+        raise AssertionError(f"{name}: printed no JSON line")
+    for row in rows:
+        if set(row) != keys:
+            raise AssertionError(f"{name}: keys {sorted(set(row) ^ keys)} "
+                                 f"missing or unexpected")
+        if not all(map(math.isfinite, _numbers(row))):
+            raise AssertionError(f"{name}: a number is not finite: {row}")
+    print(f"[scripts] {name}: {len(rows)} JSON line(s) in {seconds:.1f} s")
+    return rows
+
+
+def phase_scripts(card: str) -> dict:
+    """Each measurement script's main function at a smoke budget (module
+    note, phase 38); the dense breakdown's classes sum to its busy time
+    and hold GEMM and hand-written kernel time."""
+    from neuralpde_tpu_torch.kernels import tanh_jet as tj
+
+    tj.reset_launch_counts()
+    breakdown = _script("torch_profile_breakdown")
+    (dense,) = _script_lines("torch_profile_breakdown",
+                             lambda: breakdown.run("dense", steps=2))
+    cats = dense["categories"]
+    print(f"[scripts] dense breakdown: classes sum to "
+          f"{sum(cats.values()):.4f} ms, busy {dense['device_busy_ms']:.4f} "
+          f"ms a step (limit {breakdown.SUM_RTOL:.0%}); gemm "
+          f"{cats['gemm']:.4f} ms, hand_written {cats['hand_written']:.4f} "
+          f"ms; {card}")
+    if not breakdown.classes_sum_to_busy(dense):
+        raise AssertionError("scripts: the breakdown's classes do not sum "
+                             "to its busy time")
+    if not (cats["gemm"] > 0 and cats["hand_written"] > 0):
+        raise AssertionError(f"scripts: the dense breakdown lacks GEMM or "
+                             f"hand-written kernel time: {cats}")
+    _script_lines("torch_measure_weak", lambda: _script(
+        "torch_measure_weak").run(steps=3, repeats=1))
+    accuracy_rows = _script("torch_measure_weak_accuracy")
+    _script_lines("torch_measure_weak_accuracy", lambda: accuracy_rows.run(
+        budget=0.3, seeds=1, problems=("front",),
+        labels=[label for label, _, _ in accuracy_rows.configs("front")
+                if label == "strong" or "adaptive" in label]))
+    _script_lines("torch_measure_ensemble", lambda: _script(
+        "torch_measure_ensemble").run(members=(2,), chunk=10, reps=1))
+    _script_lines("torch_measure_mfu_accuracy", lambda: _script(
+        "torch_measure_mfu_accuracy").run("64:8192", budget=5.0, inner=100))
+    _script_lines("torch_probe_tr_parity", lambda: _script(
+        "torch_probe_tr_parity").run(maxiters=2))
+    budget = _script("torch_probe_allen_cahn_budget")
+    _script_lines("torch_probe_allen_cahn_budget", lambda: budget.run(
+        50, precisions=("highest",), stages=budget.STAGES[:1]))
+    _script_lines("torch_measure_ns_operator", lambda: _script(
+        "torch_measure_ns_operator").run("base-fd", iters=4))
+    _script_lines("torch_measure_pino_pde", lambda: _script(
+        "torch_measure_pino_pde").run(steps=4))
+    _script_lines("torch_measure_fieldgrid_derivs", lambda: _script(
+        "torch_measure_fieldgrid_derivs").run(iters=4, grids=(16,)))
+    counts = tj.launch_counts()
+    print(f"[scripts] launches counted {counts}; {card}")
+    _require_launched("scripts", counts, "tanh_jet2_forward",
+                      "tanh_jet2_backward")
+    return counts
+
+
 def main() -> int:
     name, smi = phase_device()
     card = f"card: {smi}"
@@ -4014,7 +4112,8 @@ def main() -> int:
             34: lambda: phase_examples(card),
             35: lambda: phase_docs(card),
             36: lambda: phase_lbfgs(card),
-            37: lambda: phase_bench(card)}
+            37: lambda: phase_bench(card),
+            38: lambda: phase_scripts(card)}
     totals: dict = {}
     checked = set(CHECK_SHAPES)
     allocated = {}

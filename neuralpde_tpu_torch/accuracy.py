@@ -159,16 +159,18 @@ def allen_cahn_net(rank: int = 256, hidden=(64, 64, 64), n_modes: int = 10,
 
 
 def allen_cahn_stage(net: SeparableNet, causal_eps: float, *,
-                     nodes: int = 256, dtype=torch.float32, device="cuda"):
+                     nodes: int = 256, dtype=torch.float32, device="cuda",
+                     matmul_precision: str = "highest"):
     """One causal stage of the recipe: ``nodes`` per axis, IC weight 100,
-    true float32 matmuls.  Returns the problem and its strategy (whose
-    ``causal_weights`` monitor the stage)."""
+    true float32 matmuls unless ``matmul_precision`` says otherwise
+    ("default": TF32 on the card).  Returns the problem and its strategy
+    (whose ``causal_weights`` monitor the stage)."""
     system = allen_cahn_system()
     strategy = SeparableTraining(dx=[2.0 / (nodes - 1), 1.0 / (nodes - 1)],
                                  causal=system.ivs[1], causal_eps=causal_eps)
     prob = discretize(system, PhysicsInformedNN(
         net, strategy, dtype=dtype, device=device,
-        matmul_precision="highest",
+        matmul_precision=matmul_precision,
         adaptive_loss=NonAdaptiveLoss(bc_loss_weights=[100.0])))
     return prob, strategy
 

@@ -1,0 +1,1 @@
+from . import derivatives, quadrature, sampling  # noqa: F401

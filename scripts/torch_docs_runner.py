@@ -19,7 +19,7 @@ The port adds:
     block on the card only, and ``# docs-runner: full only <reason>`` runs
     it only in the ``full`` mode (no caps).
 
-Modes: ``capped`` (the caps, on any device: `tests/test_torch_docs_runner.py`
+Modes: ``capped`` (the caps, on any device: `tests/test_torch_docs_*.py`
 on the CPU, `chip_smoke.py` phase 35 on the card) and ``full`` (no caps,
 the pages' own budgets).  `CPU_CAPS` caps a few more keywords on the CPU
 only, where a page at `CAPS` takes more than a few seconds.

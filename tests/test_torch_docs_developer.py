@@ -1,0 +1,12 @@
+"""The port's documentation runs on the port: the developer pages and the
+index of `docs/torch/`, each under the runner's capped budgets on the CPU
+(`tests/_torch_docs_pages.py` says how)."""
+
+import pytest
+
+from _torch_docs_pages import run_page_case, section
+
+
+@pytest.mark.parametrize("page", section("developer"))
+def test_docs_page_runs_on_the_port(page):
+    run_page_case(page)

@@ -1,18 +1,14 @@
-"""The port's documentation (`docs/torch/`) runs on the port.
+"""The port's documentation (`docs/torch/`): coverage.
 
-* Every page's ``python`` blocks execute on the CPU through the shared
-  runner (`scripts/torch_docs_runner.py`, the runner `chip_smoke.py` phase
-  35 uses on the card) under its ``capped`` budgets, with the ``DEVICE``
-  binding rewritten to ``"cpu"``; a page with no python block is skipped
-  as `tests/test_docs_runner.py` skips one, and no printed metric may be
-  a NaN or an inf.
-* Coverage: one port page per `docs/src` page at the same relative path
-  and no other; each page has substance (>= 60 lines, the JAX pages'
-  rule); no block imports JAX, optax, flax, haiku or the JAX package, and
-  every `neuralpde_tpu_torch` name a block imports resolves; the first
-  runnable block of a page binds ``DEVICE = "cuda"``; no line that names
-  the TPU, the v5e or XLA states a number unless it quotes the JAX
-  package and says so.
+Every page's ``python`` blocks run on the CPU in the four section files
+(`tests/test_torch_docs_{developer,examples,manual,tutorials}.py`, through
+`tests/_torch_docs_pages.py`), which together take every page once.  Here:
+one port page per `docs/src` page at the same relative path and no other;
+each page has substance (>= 60 lines, the JAX pages' rule); no block
+imports JAX, optax, flax, haiku or the JAX package, and every
+`neuralpde_tpu_torch` name a block imports resolves; the first runnable
+block of a page binds ``DEVICE = "cuda"``; no line that names the TPU, the
+v5e or XLA states a number unless it quotes the JAX package and says so.
 """
 
 import ast
@@ -21,15 +17,9 @@ import importlib.util
 import os
 import re
 
-import pytest
+from _torch_docs_pages import ROOT, SECTIONS, runner, section
 
-ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_DOCS = os.path.join(ROOT, "docs", "src")
-
-_spec = importlib.util.spec_from_file_location(
-    "torch_docs_runner", os.path.join(ROOT, "scripts", "torch_docs_runner.py"))
-runner = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(runner)
 
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "haiku", "neuralpde_tpu"}
 _TPU = re.compile(r"\b(TPU|v5e|XLA)\b")
@@ -48,20 +38,13 @@ def _text(page):
         return f.read()
 
 
-@pytest.mark.parametrize("page", runner.pages())
-def test_docs_page_runs_on_the_port(page):
-    if not runner.blocks(page):
-        pytest.skip("no python blocks")
-    try:
-        res = runner.run_page(page, mode="capped", device="cpu")
-    except runner.PageError as e:
-        pytest.fail(str(e))
-    assert res["blocks"] > 0
-    assert not runner.nonfinite(res), runner.nonfinite(res)
-
-
 def test_every_jax_page_has_its_port_and_no_other():
     assert runner.pages() == _jax_pages()
+
+
+def test_the_section_files_run_every_page_once():
+    runs = sorted(p for name in SECTIONS for p in section(name))
+    assert runs == runner.pages()
 
 
 def test_port_pages_have_substance():

@@ -189,9 +189,10 @@ def test_import_leaves_jax_out():
 
 
 def test_no_module_of_the_port_imports_jax():
+    scripts = sorted((PORT.parent / "scripts").glob("torch_*.py"))
+    assert len(scripts) >= 10, scripts    # the twins and the port's tools
     for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py",
-                 PORT.parent / "bench_torch.py",
-                 PORT.parent / "scripts" / "torch_probe_matmul_peak.py"]:
+                 PORT.parent / "bench_torch.py", *scripts]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -203,6 +204,42 @@ def test_no_module_of_the_port_imports_jax():
                 assert name.split(".")[0] not in (
                     "jax", "jaxlib", "optax", "neuralpde_tpu"), (path, name)
 
+
+def _defined_names(path: Path) -> set:
+    """Public names a module defines at top level (what ``import *`` of a
+    module without ``__all__`` takes, less the names it imports)."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_jax_subpackage_name_resolves_in_the_port():
+    """Each name a JAX subpackage's ``__init__.py`` exports (read by AST,
+    no JAX import) is an attribute of the port's subpackage, as
+    ``from neuralpde_tpu_torch.compile import discretize`` needs."""
+    import importlib
+
+    jax_root = PORT.parent / "neuralpde_tpu"
+    exempt = {"FlaxAdapter", "HaikuAdapter"}      # TorchModuleAdapter instead
+    missing, seen = [], 0
+    for init in sorted(jax_root.glob("*/__init__.py")):
+        sub = init.parent.name
+        port = importlib.import_module(f"neuralpde_tpu_torch.{sub}")
+        for node in ast.parse(init.read_text()).body:
+            if not isinstance(node, ast.ImportFrom):
+                continue
+            names = [a.asname or a.name for a in node.names]
+            if names == ["*"]:
+                names = _defined_names(init.parent / f"{node.module}.py")
+            for name in set(names) - exempt:
+                seen += 1
+                if not hasattr(port, name):
+                    missing.append(f"{sub}.{name}")
+    assert seen > 100 and not missing, missing
 
 def test_loss_weights_match_jax():
     """NonAdaptiveLoss's fixed weights scale each loss as in the JAX
