@@ -60,6 +60,7 @@ from .kernels.lbfgs_zoom import STATE_SIZE as ZOOM_STATE_SIZE
 from .kernels.tanh_jet import add_replayed, counts_since, launch_counts
 from .logging_utils import logscalar, logvector
 from .parallel.mesh import BATCH_AXIS, all_reduce_flat, get_mesh
+from .utils.profiling import PhaseTimer, merge_summaries, spans_enabled
 
 
 class Adam(torch.optim.Optimizer):
@@ -707,6 +708,31 @@ def _side_stream(like: torch.Tensor):
         caller.wait_stream(side)
 
 
+def _segments(device) -> int:
+    """The allocator segments created on ``device`` so far."""
+    return torch.cuda.memory_stats(device).get("segment.all.allocated", 0)
+
+
+class _SpannedCapture:
+    """A `torch.cuda.graph` context with its entry (synchronize, emptying
+    the cache, the stream switch, ``capture_begin``), the captured body and
+    its exit (the end of capture and the graph's instantiation) as the
+    spans ``solve.capture.enter``, ``.record`` and ``.instantiate``."""
+
+    def __init__(self, capture, spans: PhaseTimer):
+        self.capture, self.spans = capture, spans
+
+    def __enter__(self):
+        with self.spans.phase("solve.capture.enter"):
+            self.capture.__enter__()
+        self.spans.open("solve.capture.record")
+
+    def __exit__(self, *exc):
+        self.spans.close()
+        with self.spans.phase("solve.capture.instantiate"):
+            return self.capture.__exit__(*exc)
+
+
 class GraphedSteps:
     """Steps of a `TrainStep` on the card through CUDA graphs.
 
@@ -732,10 +758,18 @@ class GraphedSteps:
     launches inside the trial bodies are reported from the device's count
     of them when `stats` is read.  A user's `torch.optim.LBFGS` reads the
     host and runs eagerly.
+
+    ``spans``: a `utils.profiling.PhaseTimer` (`solve`'s) that records
+    each eager step (``solve.eager_step``), capture (``solve.capture``,
+    with its children ``.enter``, ``.record`` and ``.instantiate`` and the
+    allocator segments it created, ``segments``) and replay
+    (``solve.replay``); None records nothing.
     """
 
-    def __init__(self, step: TrainStep, carry, generator: torch.Generator):
+    def __init__(self, step: TrainStep, carry, generator: torch.Generator,
+                 spans: PhaseTimer | None = None):
         self.step = step
+        self.spans = spans
         self.theta, self.opt, self.ada_state, _ = carry
         self.generator = generator
         self.eager = isinstance(self.opt, torch.optim.LBFGS)
@@ -758,25 +792,20 @@ class GraphedSteps:
         """Run the step at ``iteration`` -> ``(loss, aux)`` (tensors that a
         later replay of the same graph overwrites)."""
         kind = self.step.reweights(iteration)
+        spans = self.spans
         if self.eager or kind not in self._seen:
             self._seen.add(kind)
-            if not self.lbfgs:
-                return self.step.run(self.theta, self.opt, self.ada_state,
-                                     self.generator, kind)
-            offset = self.generator.get_offset()
-            self.step.closure_offsets = []
-            try:
-                out = self.step.run(self.theta, self.opt, self.ada_state,
-                                    self.generator, kind)
-                self._draws[kind] = (
-                    [o - offset for o in self.step.closure_offsets],
-                    self.generator.get_offset() - offset)
-            finally:
-                self.step.closure_offsets = None
+            if spans is not None:
+                spans.open("solve.eager_step")
+            out = self._run_eager(kind)
+            if spans is not None:
+                spans.close()
             return out
         if kind not in self._graphs:
             self._graphs[kind] = self._capture(kind)
         graph, out, launched, generators = self._graphs[kind]
+        if spans is not None:
+            spans.open("solve.replay")
         if generators:
             offset = self.generator.get_offset()
             for states, start in zip(generators, self._draws[kind][0]):
@@ -785,12 +814,35 @@ class GraphedSteps:
         graph.replay()
         if generators:
             self.generator.set_offset(offset + self._draws[kind][1])
+        if spans is not None:
+            spans.close()
         add_replayed(launched)
         self.replays += 1
         return out
 
+    def _run_eager(self, kind: bool):
+        if not self.lbfgs:
+            return self.step.run(self.theta, self.opt, self.ada_state,
+                                 self.generator, kind)
+        offset = self.generator.get_offset()
+        self.step.closure_offsets = []
+        try:
+            out = self.step.run(self.theta, self.opt, self.ada_state,
+                                self.generator, kind)
+            self._draws[kind] = (
+                [o - offset for o in self.step.closure_offsets],
+                self.generator.get_offset() - offset)
+        finally:
+            self.step.closure_offsets = None
+        return out
+
     def _capture(self, reweight: bool):
-        t0 = time.perf_counter()
+        spans = self.spans
+        if spans is None:
+            t0 = time.perf_counter()
+        else:
+            segments = _segments(self.generator.device)
+            spans.open("solve.capture")
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
@@ -812,8 +864,10 @@ class GraphedSteps:
             self.opt.body_pool = BodyPool(self.generator.device)
             weakref.finalize(graph, self.opt.body_pool.release)
         try:
-            with torch.cuda.graph(graph,
-                                  stream=torch.cuda.current_stream()):
+            capture = torch.cuda.graph(graph,
+                                       stream=torch.cuda.current_stream())
+            with (capture if spans is None
+                  else _SpannedCapture(capture, spans)):
                 out = self.step.run(self.theta, self.opt, self.ada_state,
                                     self.generator, reweight, **kw)
                 if self.lbfgs:
@@ -828,7 +882,12 @@ class GraphedSteps:
             if self.lbfgs:
                 self.opt.body_pool = None
         self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
+        if spans is None:
+            self.capture_seconds += time.perf_counter() - t0
+        else:
+            self.capture_seconds += spans.close()
+            spans.add("solve.capture", "segments",
+                      _segments(self.generator.device) - segments)
         launched = counts_since(before)
         if self.lbfgs:
             # the launches outside the trial bodies run at every replay
@@ -898,7 +957,23 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
 
     On the card, ``result.aux["cuda_graph"]`` counts the captures, their
     seconds and the replays.
+
+    With spans on (`utils.profiling.enable_spans`, or ``profile_dir``
+    given) the run records its phases in a `utils.profiling.PhaseTimer`
+    of its own, whose summary is ``result.aux["spans"]``: ``solve``, and
+    inside it ``solve.build`` (everything before the first step),
+    ``solve.eager_step``, ``solve.capture`` (its children ``.enter``,
+    ``.record``, ``.instantiate``; the counter ``segments``),
+    ``solve.replay``, ``solve.read`` (the host's wait for a block's
+    loss), ``solve.block_end`` (the work after it but the callback),
+    ``solve.callback`` and ``solve.finish``.  A profiler's trace then holds
+    each as a range.  With spans off the key is absent.
     """
+    spans = (PhaseTimer() if profile_dir is not None or spans_enabled()
+             else None)
+    if spans is not None:
+        spans.open("solve")
+        spans.open("solve.build")
     optimizer = optimizer or adam(1e-3)
     pinnrep = getattr(prob, "pinnrep", None)
     if pinnrep is not None:
@@ -947,7 +1022,7 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
                      if pinnrep is not None else 50)
     history = []
     loss_val, aux = None, {}
-    graphed = (GraphedSteps(step, carry, generator)
+    graphed = (GraphedSteps(step, carry, generator, spans)
                if torch.device(device).type == "cuda" else None)
     if profile_dir is not None:
         from .utils.profiling import trace
@@ -956,29 +1031,50 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     else:
         profiling = contextlib.nullcontext()
     like = next(iter(theta.values()))
+    if spans is not None:
+        spans.close()
     with profiling, _side_stream(like):
         while it < maxiters:
             for i in range(it, it + inner_steps):
                 if graphed is not None:
                     loss, aux = graphed(i)
                 else:
+                    if spans is not None:
+                        spans.open("solve.eager_step")
                     loss, aux = step.run(theta, opt, ada_state, generator,
                                          step.reweights(i))
+                    if spans is not None:
+                        spans.close()
             it += inner_steps
+            if spans is not None:
+                spans.open("solve.read")
             loss_val = float(loss)
+            if spans is not None:
+                spans.close()
+                spans.open("solve.block_end")
             aux = {k: v.clone() for k, v in aux.items()}
             history.append(loss_val)
             if verbose:
                 print(f"[solve] iter {it:6d}  loss {loss_val:.6g}")
             if logger is not None and it % log_frequency == 0:
                 _log_metrics(logger, aux, it, ada_state)
-            if callback is not None and callback(it, loss_val, aux):
-                break
             if checkpoint_dir is not None and it % checkpoint_every < inner_steps:
                 _save(checkpoint_dir, theta, opt, generator, ada_state, it)
-            if abstol is not None and loss_val < abstol:
+            reached = abstol is not None and loss_val < abstol
+            diverged = not math.isfinite(loss_val)
+            if spans is not None:
+                spans.close()
+            if callback is not None:
+                if spans is not None:
+                    spans.open("solve.callback")
+                stop = callback(it, loss_val, aux)
+                if spans is not None:
+                    spans.close()
+                if stop:
+                    break
+            if reached:
                 break
-            if not math.isfinite(loss_val):
+            if diverged:
                 warnings.warn(
                     f"training diverged (loss={loss_val}) at iteration {it}; "
                     "stopping — consider a lower learning rate, remat=True, "
@@ -986,6 +1082,8 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
                     "source")
                 break
 
+    if spans is not None:
+        spans.open("solve.finish")
     if checkpoint_dir is not None:
         _save(checkpoint_dir, theta, opt, generator, ada_state, it)
     result_aux = {**aux, "adaptive_state": ada_state}
@@ -1001,15 +1099,20 @@ def solve(prob, optimizer=None, maxiters: int = 1000, *,
     # params: check it on the trained ones, outside any step, and warn, or
     # with quad_adapt=True refine it against them and solve again
     strategy = pinnrep.strategy if pinnrep is not None else None
-    if (getattr(strategy, "_trained_checks", None)
-            and math.isfinite(loss_val if loss_val is not None else math.nan)):
-        if not quad_adapt:
-            strategy.validate_trained(result.u)
-        else:
-            result = _quad_adapt_resolve(
-                result, prob, strategy, optimizer, maxiters,
-                rounds=quad_adapt_rounds, abstol=abstol, generator=generator,
-                inner_steps=inner_steps, verbose=verbose, callback=callback)
+    trained_checks = (
+        getattr(strategy, "_trained_checks", None)
+        and math.isfinite(loss_val if loss_val is not None else math.nan))
+    if trained_checks and not quad_adapt:
+        strategy.validate_trained(result.u)
+    if spans is not None:
+        spans.close()                   # solve.finish
+        spans.close()                   # solve
+        result_aux["spans"] = spans.summary()
+    if trained_checks and quad_adapt:
+        result = _quad_adapt_resolve(
+            result, prob, strategy, optimizer, maxiters,
+            rounds=quad_adapt_rounds, abstol=abstol, generator=generator,
+            inner_steps=inner_steps, verbose=verbose, callback=callback)
     return result
 
 
@@ -1047,6 +1150,9 @@ def _quad_adapt_resolve(result, prob, strategy, optimizer, maxiters, *,
         if "cuda_graph" in aux and "cuda_graph" in result.aux:
             aux["cuda_graph"] = {k: v + result.aux["cuda_graph"][k]
                                  for k, v in aux["cuda_graph"].items()}
+        if "spans" in result.aux:
+            aux["spans"] = merge_summaries(result.aux["spans"],
+                                           aux.get("spans", {}))
         result = SolveResult(u=res2.u, objective=res2.objective,
                              iterations=result.iterations + res2.iterations,
                              aux=aux, history=result.history + res2.history)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions;
 Gauss-Newton's CUDA-graph inner solve against the same solve step by step;
 and `solve`'s captured training step (eager against replayed, fresh points
-per replay, the reweighting graph, a capture that fails); the `zoom_step`
+per replay, the reweighting graph, a capture that fails, the spans of the
+capture and the replays); the `zoom_step`
 kernel against its plain version, and `npde.lbfgs()` captured (against the
 CPU, with no host read in a block, restored from a checkpoint); one rate of
 `bench_torch.py` and its matmul-ceiling probe.
@@ -743,12 +744,9 @@ def test_integral_rule_tensors_live_on_the_card(cuda):
     assert all(v.dtype == torch.float32 for v in res.u.values())
 
 
-@pytest.mark.cuda
-def test_quad_adapt_resolves_with_fresh_graphs(cuda):
-    """Each re-solve of ``quad_adapt`` captures its own graph; the counts
-    add up over the rounds."""
-    import warnings
-
+def _quad_adapt_problem(cuda):
+    """A 1-D Poisson problem whose auto-refined rule fails its check on the
+    trained solution, so that ``quad_adapt`` solves again."""
     import neuralpde_tpu_torch as npde
 
     x = npde.symbols("x")
@@ -761,8 +759,19 @@ def test_quad_adapt_resolves_with_fresh_graphs(cuda):
                                        maxiters=400)
     chain = npde.Chain(npde.FourierFeatures(1, 16, sigma=6.0),
                        npde.Dense(32, 24, torch.tanh), npde.Dense(24, 1))
-    prob = npde.discretize(system, npde.PhysicsInformedNN(
+    return npde.discretize(system, npde.PhysicsInformedNN(
         chain, strategy, derivative="jet", dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_quad_adapt_resolves_with_fresh_graphs(cuda):
+    """Each re-solve of ``quad_adapt`` captures its own graph; the counts
+    add up over the rounds."""
+    import warnings
+
+    import neuralpde_tpu_torch as npde
+
+    prob = _quad_adapt_problem(cuda)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res = npde.solve(prob, npde.adam(1e-3), maxiters=300, inner_steps=50,
@@ -770,6 +779,103 @@ def test_quad_adapt_resolves_with_fresh_graphs(cuda):
     assert res.iterations == 600
     assert res.aux["cuda_graph"]["captures"] == 2
     assert res.aux["cuda_graph"]["replays"] == 598
+
+
+@pytest.fixture
+def spans_on():
+    """Spans on for the test, the switch restored after it."""
+    from neuralpde_tpu_torch.utils import profiling
+
+    before = profiling.spans_enabled()
+    profiling.enable_spans(True)
+    yield
+    profiling.enable_spans(before)
+
+
+def _capture_spans_agree(spans, graphs) -> float:
+    """The capture's children lie inside it; its seconds are the graph
+    counter's; a replay a span.  Returns the children's share of the
+    capture's seconds."""
+    capture = spans["solve.capture"]
+    children = [spans[f"solve.capture.{part}"]
+                for part in ("enter", "record", "instantiate")]
+    assert capture["count"] == graphs["captures"]
+    for child in children:
+        assert child["parent"] == "solve.capture"
+        assert child["count"] == graphs["captures"]
+    inside = sum(child["total_s"] for child in children)
+    assert inside <= capture["total_s"]
+    np.testing.assert_allclose(capture["self_s"], capture["total_s"] - inside,
+                               rtol=1e-9, atol=1e-12)
+    assert graphs["capture_seconds"] == capture["total_s"]
+    assert spans["solve.replay"]["count"] == graphs["replays"]
+    assert isinstance(capture["segments"], int) and capture["segments"] >= 0
+    return inside / capture["total_s"]
+
+
+@pytest.mark.cuda
+def test_solve_spans_split_the_capture_and_count_the_replays(cuda, spans_on):
+    """With spans on, `solve` on the card records one eager step, the
+    capture with its entry, recorded step and instantiation, and a span a
+    replay, from the clock of the graph counter's seconds."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.StochasticTraining(
+        256, bcs_points=32, microbatch=64))
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    spans, graphs = res.aux["spans"], res.aux["cuda_graph"]
+    assert graphs["captures"] == 1 and graphs["replays"] == 5
+    assert spans["solve.eager_step"]["count"] == 1
+    assert spans["solve.read"]["count"] == 2
+    assert _capture_spans_agree(spans, graphs) >= 0.99
+
+
+@pytest.mark.cuda
+def test_quad_adapt_adds_up_the_resolves_spans(cuda, spans_on):
+    """Under ``quad_adapt`` the re-solve's spans join the first solve's, as
+    its graph counts do.  (These captures take ~14 ms, of which the graph's
+    preparation before `torch.cuda.graph`'s entry, the capture's own time,
+    is ~2%.)"""
+    import warnings
+
+    import neuralpde_tpu_torch as npde
+
+    prob = _quad_adapt_problem(cuda)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = npde.solve(prob, npde.adam(1e-3), maxiters=300, inner_steps=50,
+                         quad_adapt=True, quad_adapt_rounds=1)
+    spans = res.aux["spans"]
+    assert spans["solve"]["count"] == 2
+    assert spans["solve.read"]["count"] == 12
+    _capture_spans_agree(spans, res.aux["cuda_graph"])
+
+
+@pytest.mark.cuda
+def test_capture_spans_are_profiler_ranges(cuda, spans_on):
+    """Under `torch.profiler` the capture's spans are ranges of the trace,
+    the children inside the capture."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.GridTraining(0.1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        npde.solve(prob, npde.adam(1e-3), maxiters=4, inner_steps=2)
+    events = {}
+    for e in prof.events():
+        # each range is a host event, and on the card also an annotation
+        # of the device's timeline
+        if e.name.startswith("solve") and e.device_type == DeviceType.CPU:
+            events.setdefault(e.name, []).append(e.time_range)
+    (capture,) = events["solve.capture"]
+    for part in ("enter", "record", "instantiate"):
+        (child,) = events[f"solve.capture.{part}"]
+        assert capture.start <= child.start and child.end <= capture.end
+    assert len(events["solve.replay"]) == 3
 
 
 @pytest.mark.cuda
