@@ -30,7 +30,12 @@ allocated, and raise on failure:
    of phase 35 launch at many small shapes); the L-BFGS line search's
    `zoom_step` against `zoom_transition` on every step of real searches
    and on edge values, bit for bit in float32 and float64, and its time a
-   launch beside the plain transition's and an empty kernel's;
+   launch beside the plain transition's and an empty kernel's; `sq_sum`
+   (the factored mean square's sum of squares) through its wrapper
+   against `sq_sum_reference` at the SPINN main path's 16384^2 grid and
+   at odd shapes, float32 and float64 (rtol 1e-10), with both times at
+   the grid in float32 beside its bytes bound; after each later phase
+   every shape `sq_sum` was launched at and not checked yet the same way;
 4. card vs CPU: one loss and gradient of the dense bench problem at batch
    32,768, same parameters and points, on the card and the CPU (plain);
 5. dense main path: one warm-up step and 20 timed steps through
@@ -209,7 +214,9 @@ by Taylor mode) and the launches of every replay in those phases; a
 from 0 at each phase's start and read at its end; a replay of a captured
 L-BFGS step launches it once a trial body that ran, which the solve
 reports from the device's count when it ends.  Every kernel of the line
-must have launched. Every other graph phase,
+must have launched.  `sq_sum` is counted through its wrapper only (the
+eager steps and the captures), zeroed before each counted phase: no
+replay reports it.  Every other graph phase,
 like phase 10 (Gauss-Newton's LSQR graph), prints its own counts apart;
 phases 27 to 30 and 32 print theirs, which must be 0. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
@@ -285,11 +292,17 @@ CHECK_SHAPES = (KERNEL_SHAPE,
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
        torch.float64: dict(rtol=1e-12, atol=1e-12)}
 CARD_VS_CPU_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
+# sq_sum against its plain version: both sum in float64, in other orders
+SQ_SUM_RTOL = 1e-10
 TRANSFORM_RTOL = 1e-4
 SPINN_N = 16_384            # bench.py spinn_points_per_sec
 SPINN_RANK = 64
 SPINN_STEPS = 20
 SPINN_CHECK_N = 128         # accuracy_suite's 128^2 grid
+# sq_sum's checks (phase 3): the SPINN main path's grid (timed), the
+# accuracy grid and odd shapes (a tail past the 16-byte loads)
+SQ_SUM_SHAPES = ((SPINN_N, SPINN_N), (SPINN_CHECK_N, SPINN_CHECK_N),
+                 (1023, 1029), (3, 5))
 SPINN_SEEDS = (0, 1, 2, 3, 4)
 # rel L2 over these seeds on an H100: float32 median 1.54e-3, worst 3.96e-3
 # (seed 0), which moves to 5e-2 under other last-bit roundings of Adam
@@ -510,7 +523,65 @@ def phase_kernels(card: str) -> list[dict]:
                  replaces="neuralpde_tpu/ops/derivatives.py:84",
                  **_bound(name, KERNEL_SHAPE, torch.float32),
                  library_ms=None, **r)
-            for name, r in results.items()] + [_check_zoom(card)]
+            for name, r in results.items()] + [_check_zoom(card),
+                                               _sq_sum_kernel(card)]
+
+
+def _check_sq_sum(shape, dtype, g, results: dict, card: str,
+                  tag: str = "") -> None:
+    """`sq_sum` through its wrapper (the kernel, on a CUDA tensor) against
+    `sq_sum_reference` at ``shape`` and ``dtype`` (`SQ_SUM_RTOL`); the
+    largest error goes into ``results``; at the SPINN main path's grid in
+    float32 both are timed in turns, beside the bytes bound."""
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
+
+    r = torch.randn(shape, generator=g, dtype=dtype, device="cuda")
+    got = sq.sq_sum(r)
+    torch.cuda.synchronize()
+    want = sq.sq_sum_reference(r)
+    torch.testing.assert_close(got, want, rtol=SQ_SUM_RTOL, atol=0)
+    err = float((got - want).abs())
+    results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
+    line = (f"[kernel]{tag} sq_sum {str(dtype)[6:]} {shape}: max_abs_err "
+            f"{err:.3e}, relative {err / float(want):.3e} (rtol "
+            f"{SQ_SUM_RTOL:g})")
+    if shape == SQ_SUM_SHAPES[0] and dtype == torch.float32 and not tag:
+        kernel, plain = (functools.partial(f, r) for f in (
+            sq.sq_sum, sq.sq_sum_reference))
+        ms, plain_ms = _in_turns(_device_ms, plain, kernel)
+        call_ms, plain_call_ms = _in_turns(_event_ms, plain, kernel)
+        bound = _sq_sum_bound(shape, dtype)
+        line += (f"; device time kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                 f"ms; per call with launch kernel {call_ms:.4f} ms, plain "
+                 f"{plain_call_ms:.4f} ms; bound by {bound['bound_by']} "
+                 f"{bound['bound_ms']:.4f} ms, "
+                 f"{100 * bound['bound_ms'] / ms:.1f}% of it; {card}")
+        results.update(ms=ms, plain_ms=plain_ms, **bound)
+    print(line)
+
+
+def _sq_sum_kernel(card: str) -> dict:
+    """`_check_sq_sum` at each of `SQ_SUM_SHAPES`, float32 and float64: the
+    kernel's entry of the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    results: dict = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in SQ_SUM_SHAPES:
+            _check_sq_sum(shape, dtype, g, results, card)
+    return dict(name="sq_sum", route="cuda",
+                source="neuralpde_tpu_torch/csrc/sq_sum.cu",
+                replaces="neuralpde_tpu/strategies.py:28", library_ms=None,
+                **results)
+
+
+def _sq_sum_bound(shape, dtype) -> dict:
+    """The least time of one `sq_sum`: the tensor read once at the memory
+    rate, or its square and add a value at the float32 rate."""
+    numel = math.prod(shape)
+    by_bytes = numel * dtype.itemsize / H100_BYTES_PER_S
+    by_ops = 2 * numel / H100_F32_FLOPS
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def _launch_floor_ms() -> float:
@@ -628,29 +699,37 @@ def _zoom_bound() -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def check_launched_shapes(number: int, checked: set, kernels: list[dict],
-                          card: str) -> None:
+def check_launched_shapes(number: int, checked: set, sq_checked: set,
+                          kernels: list[dict], card: str) -> None:
     """Hold every kernel to its plain version at each shape launched in
     phase ``number`` that no phase checked yet (float32 and float64), as
-    phase 3 does, and fold the errors into ``kernels``."""
+    phase 3 does, and fold the errors into ``kernels``: the tanh_jet2
+    kernels' shapes in ``checked``, `sq_sum`'s in ``sq_checked``."""
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
     from neuralpde_tpu_torch.kernels.tanh_jet import LAUNCH_SHAPES
 
     new = sorted({shape for _, shape in LAUNCH_SHAPES} - checked)
-    if not new:
+    sq_new = sorted({shape for _, shape in sq.LAUNCH_SHAPES} - sq_checked)
+    if not new and not sq_new:
         return
     g = torch.Generator(device="cuda").manual_seed(number)
     results: dict = {}
+    tag = f"[phase {number}]"
     for shape in new:
         for dtype in (torch.float32, torch.float64):
-            _check_kernels(shape, dtype, g, results, card,
-                           tag=f"[phase {number}]")
+            _check_kernels(shape, dtype, g, results, card, tag=tag)
         checked.add(shape)
+    for shape in sq_new:
+        for dtype in (torch.float32, torch.float64):
+            _check_sq_sum(shape, dtype, g,
+                          results.setdefault("sq_sum", {}), card, tag=tag)
+        sq_checked.add(shape)
     for k in kernels:
         if k["name"] in results:
             k["max_abs_err"] = max(k["max_abs_err"],
                                    results[k["name"]]["max_abs_err"])
-    print(f"[kernel] phase {number}: {len(new)} new launched shape(s) held "
-          f"to the plain versions: {new}")
+    print(f"[kernel] phase {number}: {len(new) + len(sq_new)} new launched "
+          f"shape(s) held to the plain versions: {new + sq_new}")
 
 
 # Tensors each kernel reads and writes, and float operations per element
@@ -891,10 +970,15 @@ def phase_separable_main(card: str) -> dict:
     grid after one warm-up step, then two profiled steps."""
     from neuralpde_tpu_torch import adam, make_step
     from neuralpde_tpu_torch.accuracy import poisson_spinn
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
 
     prob, _ = poisson_spinn(SPINN_N, HIDDEN, SPINN_RANK)
     pinnrep = prob.pinnrep
+    if pinnrep.strategy.routes != ["factored"]:
+        raise AssertionError(f"separable main path: routes "
+                             f"{pinnrep.strategy.routes}, not the factored "
+                             f"one")
     step = make_step(prob.loss, adam(2e-3), pinnrep.adaloss,
                      matmul_precision=pinnrep.matmul_precision)
     carry = step.init(prob.init_params, pinnrep.adaloss.init_state(
@@ -903,6 +987,7 @@ def phase_separable_main(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tj.reset_launch_counts()
+    sq.sq_sum_cuda.launches = 0
     carry, (loss, _) = step(carry, generator)          # warm-up
     losses = [loss]
     torch.cuda.synchronize()
@@ -912,7 +997,7 @@ def phase_separable_main(card: str) -> dict:
         losses.append(loss)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = tj.launch_counts()
+    counts = {**tj.launch_counts(), "sq_sum": sq.sq_sum_cuda.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     values = [float(v) for v in losses]
     pps = SPINN_N * SPINN_N * SPINN_STEPS / dt
@@ -924,7 +1009,7 @@ def phase_separable_main(card: str) -> dict:
           f"launches {counts}")
     _require_falling("separable main path", values)
     _require_launched("separable main path", counts, "tanh_jet2_forward",
-                      "tanh_jet2_backward")
+                      "tanh_jet2_backward", "sq_sum")
     _profile(functools.partial(_steps, step, carry, generator, 2), 2,
              dt / SPINN_STEPS)
     return counts
@@ -4078,6 +4163,7 @@ def main() -> int:
     _timed("build", phase_build)
     kernels = _timed("kernel", phase_kernels, card)
     from neuralpde_tpu_torch.kernels import lbfgs_zoom as lz
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
     from neuralpde_tpu_torch.kernels import tanh_jet as tj
     runs = {4: lambda: phase_card_vs_cpu(),
             5: lambda: phase_main_path(card),
@@ -4115,19 +4201,23 @@ def main() -> int:
             37: lambda: phase_bench(card),
             38: lambda: phase_scripts(card)}
     totals: dict = {}
-    checked = set(CHECK_SHAPES)
+    checked, sq_checked = set(CHECK_SHAPES), set(SQ_SUM_SHAPES)
     allocated = {}
     for number, run in runs.items():
         tj.LAUNCH_SHAPES.clear()
         tj.reset_replayed_counts()
         lz.reset_launch_counts()
         lz.reset_replayed_counts()
+        sq.LAUNCH_SHAPES.clear()
+        sq.sq_sum_cuda.launches = 0
         counts = _timed(f"phase {number}", run)
+        sq_launches = sq.sq_sum_cuda.launches
         allocated[number] = torch.cuda.memory_allocated()
         replayed = {**tj.replayed_counts(), **lz.replayed_counts()}
-        check_launched_shapes(number, checked, kernels, card)
+        check_launched_shapes(number, checked, sq_checked, kernels, card)
         if number in COUNTED_PHASES:
-            counts = {**counts, "zoom_step": lz.zoom_step_cuda.launches}
+            counts = {**counts, "zoom_step": lz.zoom_step_cuda.launches,
+                      "sq_sum": sq_launches}
             _add(totals, counts)
             _add(totals, replayed)
             print(f"[launches] phase {number}: through the wrappers "

@@ -9,7 +9,11 @@ an einsum contraction of per-axis feature matrices
     d^k u/dx_a^k grid = sum_r F_a^(k) prod_{b!=a} F_b F^(k) = order-k features
 
 so an ``N^d``-point residual costs ``N d`` axis-net evaluations; the only
-``N^d``-sized tensors are the residual grids themselves.
+``N^d``-sized tensors are the residual grids themselves.  A two-axis
+residual that is a sum of such terms (and of products of an axis-0 and an
+axis-1 value) is the low-rank matrix ``aᵀ b``: the factored route keeps it
+as its two factor matrices (`build_factored_residual`) and writes the grid
+once, inside `factored_msq`.
 
 Selected by the `SeparableTraining` strategy; every chain must be a
 `SeparableNet`.  Equations that cannot factorize (an argument coupling two
@@ -28,8 +32,10 @@ import warnings
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.sq_sum import sq_sum
 from ..nn.separable import SeparableNet
 from ..ops.quadrature import rule_tensors
 from ..ops.sampling import uniform_nodes
@@ -155,9 +161,12 @@ def _slot_nodes(arg, env, theta, p, gctx: _GridContext):
         "use a dense training strategy")
 
 
-def _depvar_grid(call: DepVarCall, orders: dict, env, theta, p,
-                 gctx: _GridContext):
-    """Grid tensor of a (derivative of a) depvar call.
+def _call_features(call: DepVarCall, orders: dict, env, theta, p,
+                   gctx: _GridContext):
+    """The rank-r features of a (derivative of a) depvar call:
+    ``(by_axis, const)``, ``by_axis`` mapping each grid axis the call varies
+    along to its ``(rank, N_i)`` features, ``const`` the ``(rank,)`` product
+    of the constant slots' features (None without one).
 
     ``orders[slot]`` is the per-input-slot derivative order (0 if absent).
     """
@@ -187,7 +196,13 @@ def _depvar_grid(call: DepVarCall, orders: dict, env, theta, p,
             by_axis[axis] = by_axis[axis] * F   # two slots fed the same axis
         else:
             by_axis[axis] = F
+    return by_axis, const
 
+
+def _depvar_grid(call: DepVarCall, orders: dict, env, theta, p,
+                 gctx: _GridContext):
+    """Grid tensor of a (derivative of a) depvar call (`_call_features`)."""
+    by_axis, const = _call_features(call, orders, env, theta, p, gctx)
     if not by_axis:                              # fully pinned call, e.g. u(0, 0)
         return torch.sum(const)
     terms, ops, out = [], [], ""
@@ -230,23 +245,31 @@ def _gev(expr: Expr, env: dict, theta, p, gctx: _GridContext):
     if isinstance(expr, DepVarCall):
         return _depvar_grid(expr, {}, env, theta, p, gctx)
     if isinstance(expr, Deriv):
-        target = expr.target
-        if not isinstance(target, DepVarCall):
-            raise ValueError(
-                f"derivative target {target!r} is not a dependent-variable "
-                "call; run expand_derivatives first")
-        inputs = ctx.dict_depvar_input[target.name]
-        orders: dict = {}
-        for w in expr.wrt:
-            if w.name not in inputs:
-                # ∂u/∂z, z not an input of u
-                return torch.zeros((), dtype=gctx.dtype, device=gctx.device)
-            slot = inputs.index(w.name)
-            orders[slot] = orders.get(slot, 0) + 1
-        return _depvar_grid(target, orders, env, theta, p, gctx)
+        orders = _deriv_orders(expr, ctx)
+        if orders is None:                  # ∂u/∂z, z not an input of u
+            return torch.zeros((), dtype=gctx.dtype, device=gctx.device)
+        return _depvar_grid(expr.target, orders, env, theta, p, gctx)
     if isinstance(expr, IntegralExpr):
         return _integral_grid(expr, env, theta, p, gctx)
     raise TypeError(f"cannot lower {type(expr).__name__}")
+
+
+def _deriv_orders(expr: Deriv, ctx: LoweringContext):
+    """Per-input-slot derivative orders of a derivative of a depvar call, or
+    None where it differentiates by a variable that is no input of it."""
+    target = expr.target
+    if not isinstance(target, DepVarCall):
+        raise ValueError(
+            f"derivative target {target!r} is not a dependent-variable "
+            "call; run expand_derivatives first")
+    inputs = ctx.dict_depvar_input[target.name]
+    orders: dict = {}
+    for w in expr.wrt:
+        if w.name not in inputs:
+            return None
+        slot = inputs.index(w.name)
+        orders[slot] = orders.get(slot, 0) + 1
+    return orders
 
 
 def _integral_grid(expr: IntegralExpr, env, theta, p, gctx: _GridContext):
@@ -300,6 +323,149 @@ def _integral_grid(expr: IntegralExpr, env, theta, p, gctx: _GridContext):
     return val
 
 
+# ---------------------------------------------------------------------------
+# The factored route: a two-axis residual as a sum of rank-factored terms
+# ---------------------------------------------------------------------------
+
+class _NotFactored(Exception):
+    """The residual is no sum of rank-factored terms over two grid axes."""
+
+
+@dataclass
+class _Terms:
+    """A two-axis grid kept factored, ``Σ_k a[k, i]·b[k, j]``: lists of
+    blocks of rows of the two factor matrices, ``(K_m, N_0)`` and
+    ``(K_m, N_1)``, concatenated once at the end."""
+
+    a: list
+    b: list
+
+    def neg(self) -> "_Terms":
+        return _Terms([-x for x in self.a], self.b)
+
+    def scaled(self, axis, value, divide: bool = False) -> "_Terms":
+        """Times (or over) a value along at most one grid axis: a scalar or
+        an axis-0 value scales ``a``, an axis-1 value scales ``b``."""
+        if axis is not None:
+            value = value.reshape(1, -1)
+        side = [x / value if divide else x * value
+                for x in (self.b if axis == 1 else self.a)]
+        return _Terms(self.a, side) if axis == 1 else _Terms(side, self.b)
+
+
+def _rank_one(axis, value, gctx: _GridContext) -> _Terms:
+    """A value along at most one grid axis (``axis`` None: a scalar) as a
+    rank-1 term, with a ones vector on the other side."""
+    ones = [torch.ones((1, n.shape[0]), dtype=gctx.dtype, device=gctx.device)
+            for n in gctx.nodes]
+    if axis is None:
+        return _Terms([ones[0] * value], [ones[1]])
+    ones[axis] = value.reshape(1, -1)
+    return _Terms([ones[0]], [ones[1]])
+
+
+def _call_terms(call: DepVarCall, orders: dict, grid_env, theta, p,
+                gctx: _GridContext) -> _Terms:
+    """A (derivative of a) depvar call as its rank-r features: a constant
+    slot scales ``a``; a call along one grid axis, or none, is rank 1."""
+    by_axis, const = _call_features(call, orders, grid_env, theta, p, gctx)
+    if not by_axis:
+        return _rank_one(None, torch.sum(const), gctx)
+    if len(by_axis) == 1:
+        (axis, F), = by_axis.items()
+        return _rank_one(axis, F.sum(0) if const is None else const @ F,
+                         gctx)
+    a = by_axis[0] if const is None else by_axis[0] * const[:, None]
+    return _Terms([a], [by_axis[1]])
+
+
+def _fev(expr: Expr, env: dict, grid_env: dict, theta, p,
+         gctx: _GridContext):
+    """Factored evaluator over two grid axes: a `_Terms`, or a value along
+    at most one axis as ``(axis, value)`` (axis None: a scalar, else a 1-D
+    tensor over that axis's nodes).  Raises `_NotFactored` where the
+    expression is no sum of rank-factored terms: a product of two depvar
+    terms, a function of a depvar, an integral, an argument coupling the
+    axes.  ``env`` maps each grid-axis name to ``(axis, nodes)``;
+    ``grid_env`` is `_grid_env`'s, for the depvar calls' arguments."""
+    ctx = gctx.ctx
+    if isinstance(expr, Num):
+        return None, expr.value
+    if isinstance(expr, Sym):
+        if expr.name not in env:
+            raise _NotFactored(f"{expr.name!r} is no grid axis")
+        return env[expr.name]
+    if isinstance(expr, Param):
+        return None, _gev(expr, grid_env, theta, p, gctx)
+    if isinstance(expr, DepVarCall):
+        return _call_terms(expr, {}, grid_env, theta, p, gctx)
+    if isinstance(expr, Deriv):
+        orders = _deriv_orders(expr, ctx)
+        if orders is None:                  # ∂u/∂z, z not an input of u
+            return None, 0.0
+        return _call_terms(expr.target, orders, grid_env, theta, p, gctx)
+    if not isinstance(expr, Call):
+        raise _NotFactored(f"{type(expr).__name__} does not factor")
+    vals = [_fev(a, env, grid_env, theta, p, gctx) for a in expr.args]
+    op = expr.op
+    if not any(isinstance(v, _Terms) for v in vals):
+        axes = {axis for axis, _ in vals if axis is not None}
+        if len(axes) <= 1:
+            return (axes.pop() if axes else None,
+                    PRIMITIVES[op](*(v for _, v in vals)))
+        if op not in ("+", "-", "*", "/"):
+            raise _NotFactored(f"{op!r} couples the grid axes")
+        # a product of an axis-0 and an axis-1 value (or a sum) is rank 1
+        vals = [_rank_one(*vals[0], gctx), vals[1]]
+    if op == "neg":
+        return vals[0].neg()
+    if op in ("+", "-"):
+        lhs, rhs = (v if isinstance(v, _Terms) else _rank_one(*v, gctx)
+                    for v in vals)
+        rhs = rhs.neg() if op == "-" else rhs
+        return _Terms(lhs.a + rhs.a, lhs.b + rhs.b)
+    if op == "*" and isinstance(vals[1], _Terms):
+        vals = vals[::-1]
+    if op in ("*", "/") and not isinstance(vals[1], _Terms):
+        return vals[0].scaled(*vals[1], divide=op == "/")
+    raise _NotFactored(f"{op!r} of a depvar term does not factor")
+
+
+class _FactoredMsq(torch.autograd.Function):
+    """``mean(r²)`` of ``r = aᵀ b``: one matrix product writes the grid,
+    `sq_sum` reads it once; the backward is two products of the saved grid,
+    ``da = s·b rᵀ`` and ``db = s·a r`` with ``s = 2ḡ/N``, scaled at their
+    ``(rows, N)`` size, never at the grid's.  Only the leading ``rows``
+    rows carry a gradient; the others' is 0."""
+
+    @staticmethod
+    def forward(ctx, a, b, acc, rows):
+        r = torch.matmul(a.T, b)
+        ctx.save_for_backward(a, b, r)
+        ctx.rows = rows
+        return (sq_sum(r) / r.numel()).to(r.dtype if acc is None else acc)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b, r = ctx.saved_tensors
+        s = (g.double() * (2.0 / r.numel())).to(r.dtype)
+        rest = (0, 0, 0, a.shape[0] - ctx.rows)     # zero rows after them
+        da = (torch.nn.functional.pad((b[:ctx.rows] @ r.T) * s, rest)
+              if ctx.needs_input_grad[0] else None)
+        db = (torch.nn.functional.pad((a[:ctx.rows] @ r) * s, rest)
+              if ctx.needs_input_grad[1] else None)
+        return da, db, None, None
+
+
+def factored_msq(a, b, acc, rows):
+    """``_msq(aᵀ b, acc)``, the mean square of a residual grid given as its
+    factor matrices ``a`` ``(K, N_0)`` and ``b`` ``(K, N_1)``, with the sum
+    of squares taken in float64 (`kernels.sq_sum`).  Only the leading
+    ``rows`` rows get a gradient: the rest must be constants."""
+    return _FactoredMsq.apply(a, b, acc, rows)
+
+
 def _theta_device(theta: dict) -> torch.device:
     """The device of the parameters; with none, no device is chosen for the
     caller (in particular not the CPU), so an empty ``theta`` raises."""
@@ -342,6 +508,52 @@ def build_separable_residual(eq: Eq, ctx: LoweringContext, nets: dict, dtype,
     expr = Call("-", (expand_derivatives(eq.lhs), expand_derivatives(eq.rhs)))
     axes = [a for a in get_argument(eq, ctx.depvars) if isinstance(a, Sym)]
     return _expr_residual(expr, axes, ctx, nets, dtype, default_p), axes
+
+
+def build_factored_residual(eq: Eq, ctx: LoweringContext, nets: dict, dtype,
+                            theta, default_p=None):
+    """Lower a two-axis equation to ``factors(nodes_list, theta) -> (a, b,
+    rows)``, its residual grid ``aᵀ b`` as factor matrices ``(K, N_0)`` and
+    ``(K, N_1)``, the terms that carry a gradient in the leading ``rows``
+    rows, K padded with zero rows to a multiple of 4 (aligned operands for
+    the matrix product; a zero row adds exactly 0); or None where the
+    residual does not factor (`_fev`), which a probe with ``theta`` decides
+    here, once."""
+    expr = Call("-", (expand_derivatives(eq.lhs), expand_derivatives(eq.rhs)))
+    axes = [a for a in get_argument(eq, ctx.depvars) if isinstance(a, Sym)]
+    if len(axes) != 2:
+        raise ValueError(f"the factored route takes two grid axes, not "
+                         f"{len(axes)}")
+    p_vals = None if default_p is None else [float(v) for v in default_p]
+    top_orders = _top_orders(expr, ctx)
+
+    def factors(nodes_list, theta):
+        device = _theta_device(theta)
+        nodes = [torch.as_tensor(n, dtype=dtype, device=device)
+                 for n in nodes_list]
+        gctx = _GridContext(ctx=ctx, nets=nets, nodes=nodes, k=2,
+                            dtype=dtype, device=device, top_orders=top_orders,
+                            features={})
+        env = {s.name: (i, n) for i, (s, n) in enumerate(zip(axes, nodes))}
+        out = _fev(expr, env, _grid_env(gctx, axes), theta, p_vals, gctx)
+        terms = out if isinstance(out, _Terms) else _rank_one(*out, gctx)
+        # the terms that carry a gradient first: the backward's products
+        # take only their rows (the source's rows are constants)
+        pairs = sorted(zip(terms.a, terms.b), key=lambda ab: not (
+            ab[0].requires_grad or ab[1].requires_grad))
+        rows = sum(x.shape[0] for x, y in pairs
+                   if x.requires_grad or y.requires_grad)
+        pad = -sum(x.shape[0] for x, _ in pairs) % 4
+        zeros = [torch.zeros((pad, n.shape[0]), dtype=dtype, device=device)
+                 for n in nodes]
+        return (torch.cat([x for x, _ in pairs] + zeros[:1]),
+                torch.cat([y for _, y in pairs] + zeros[1:]), rows)
+
+    try:
+        probe_residual(factors, 2, theta, dtype)
+    except _NotFactored:
+        return None
+    return factors
 
 
 def probe_residual(residual, n_axes: int, theta, dtype) -> None:
@@ -400,6 +612,15 @@ class SeparableTraining(TrainingStrategy):
     `PhysicsInformedNN(gradient_enhanced=w)` lowers the gPINN rows
     symbolically onto the grid, and ``remat=True`` checkpoints each grid
     residual.
+
+    The route of each loss is chosen once, at build, from its expression:
+    ``"factored"`` where the residual has exactly two grid axes and is a sum
+    of rank-factored terms (`build_factored_residual`), with no causal
+    weighting, gPINN rows or remat: the grid is written once by one matrix
+    product and its mean square taken by `factored_msq`; ``"grid"`` where it
+    is evaluated as a grid (`build_separable_residual`); ``"dense"`` where
+    it cannot factorize at all (the dense fallback).  ``routes`` lists them
+    in equation order, the PDE losses first.
     """
 
     def __init__(self, dx=None, *, points=None, resample: bool = False,
@@ -424,6 +645,7 @@ class SeparableTraining(TrainingStrategy):
         self.rad_c = rad_c
         self.sampler = uniform_nodes
         self._weight_fns = []
+        self.routes = []
 
     def build(self, pinnrep, datafree_pde, datafree_bc):
         dtype, device = pinnrep.dtype, pinnrep.device
@@ -555,12 +777,24 @@ class SeparableTraining(TrainingStrategy):
 
             row = 1 if stacked else 0   # the residual dimension of axis 0
 
+            factors = None
+            if len(axes) == 2 and t_pos is None and not stacked and not remat:
+                factors = build_factored_residual(eq, ctx, nets, dtype,
+                                                  theta0, pinnrep.default_p)
+            if factors is not None:
+                def loss(theta, generator, factors=factors,
+                         nodes_of=nodes_of):
+                    nodes, _ = _shard_nodes(nodes_of(generator, theta))
+                    a, b, rows = factors(nodes, theta)
+                    return share(factored_msq(a, b, acc, rows))
+                return loss, "factored"
+
             if t_pos is None:
                 def loss(theta, generator, residual=residual,
                          nodes_of=nodes_of):
                     nodes, _ = _shard_nodes(nodes_of(generator, theta))
                     return share(_msq(residual(nodes, theta), acc))
-                return loss
+                return loss, "grid"
 
             lo, hi = spans[self.causal]
             n_t = (len(static_nodes[self.causal])
@@ -575,7 +809,7 @@ class SeparableTraining(TrainingStrategy):
 
             self._weight_fns.append(lambda theta, generator:
                                     weighted(theta, generator)[1])
-            return lambda theta, generator: weighted(theta, generator)[0]
+            return lambda theta, generator: weighted(theta, generator)[0], "grid"
 
         def dense_fallback(df, args, eq, why):
             """Pointwise evaluation of one non-factorizable equation on the
@@ -621,13 +855,16 @@ class SeparableTraining(TrainingStrategy):
 
         def route(eq, df, args, allow_causal):
             try:
-                return make_loss(eq, allow_causal)
+                loss, how = make_loss(eq, allow_causal)
             except (ValueError, NotImplementedError) as e:
                 if not _is_factorization_error(e):
                     raise
-                return dense_fallback(df, args, eq, str(e))
+                loss, how = dense_fallback(df, args, eq, str(e)), "dense"
+            self.routes.append(how)
+            return loss
 
         self._weight_fns = []
+        self.routes = []
         pde_losses = [route(eq, df, args, True)
                       for eq, df, args in zip(pinnrep.eqs, datafree_pde,
                                               pinnrep.pde_args)]

@@ -5,7 +5,9 @@ per replay, the reweighting graph, a capture that fails, the spans of the
 capture and the replays); the `zoom_step`
 kernel against its plain version, and `npde.lbfgs()` captured (against the
 CPU, with no host read in a block, restored from a checkpoint); one rate of
-`bench_torch.py` and its matmul-ceiling probe.
+`bench_torch.py` and its matmul-ceiling probe; the `sq_sum` kernel against
+its plain version and the SPINN Poisson's captured solve on the factored
+route.
 Graph against eager steps: rtol 1e-6 (the same kernels on the same inputs).
 
 These tests need a CUDA device and skip without one.  The file imports no
@@ -99,6 +101,101 @@ def test_tanh_jet2_kernel_rejects_what_it_does_not_take(cuda):
         tj.tanh_jet2_forward_cuda(z, z1.double(), z2)
     with pytest.raises(ValueError, match="unsupported"):
         tj.tanh_jet2_forward_cuda(z.half(), z1.half(), z2.half())
+
+
+# sq_sum and the plain version both sum squares in float64, in other
+# orders: over 2.7e8 terms they part by ~1e-14 relative
+SQ_SUM_RTOL = 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(16384, 16384), (1023, 1029), (3, 5)],
+                         ids=str)
+def test_sq_sum_kernel_matches_plain(cuda, dtype, shape):
+    """`sq_sum` against its plain version, twice bit-equal to itself, and
+    from a start that is not 16-byte aligned."""
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
+
+    r = torch.randn(shape, dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    before = sq.sq_sum_cuda.launches
+    got, again = sq.sq_sum(r), sq.sq_sum(r)
+    torch.cuda.synchronize()
+    assert sq.sq_sum_cuda.launches == before + 2
+    assert ("sq_sum", shape) in sq.LAUNCH_SHAPES
+    assert got.dtype == torch.float64 and got.shape == ()
+    assert float(got) == float(again)
+    torch.testing.assert_close(got, sq.sq_sum_reference(r), rtol=SQ_SUM_RTOL,
+                               atol=0)
+    shifted = r.reshape(-1)[1:]
+    torch.testing.assert_close(sq.sq_sum(shifted),
+                               sq.sq_sum_reference(shifted),
+                               rtol=SQ_SUM_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+def test_sq_sum_kernel_rejects_what_it_does_not_take(cuda):
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
+
+    with pytest.raises(ValueError, match="contiguous"):
+        sq.sq_sum(torch.ones(4, 6, device=cuda).T)
+    with pytest.raises(ValueError, match="dtype"):
+        sq.sq_sum(torch.ones(4, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="not CUDA"):
+        sq.sq_sum_cuda(torch.ones(4))
+
+
+@pytest.mark.cuda
+def test_factored_msq_on_the_card_matches_the_cpu(cuda):
+    """`factored_msq`'s value and both factors' gradients, float64, card
+    against CPU (where the plain sum of squares runs)."""
+    from neuralpde_tpu_torch.compile.separable import factored_msq
+
+    rng = np.random.default_rng(4)
+    a0, b0 = rng.normal(size=(12, 300)), rng.normal(size=(12, 257))
+    out = []
+    for device in ("cpu", cuda):
+        a = torch.tensor(a0, device=device, requires_grad=True)
+        b = torch.tensor(b0, device=device, requires_grad=True)
+        loss = factored_msq(a, b, None, a.shape[0])
+        out.append([loss.detach().cpu(), *(g.cpu() for g in
+                                           torch.autograd.grad(loss, (a, b)))])
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_captured_spinn_solve_takes_the_factored_route(cuda):
+    """bench's SPINN Poisson at 1024^2: its one loss takes the factored
+    route; the eager step and the capture launch `sq_sum` through the
+    wrapper, and every step runs it once on the card (a trace of the
+    solve); the replayed losses equal eager steps'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import neuralpde_tpu_torch as npde
+    from neuralpde_tpu_torch.accuracy import poisson_spinn
+    from neuralpde_tpu_torch.kernels import sq_sum as sq
+
+    prob, _ = poisson_spinn(1024, 16, 16, device=cuda)
+    assert prob.pinnrep.strategy.routes == ["factored"]
+    losses, theta, _ = _eager(prob, 6, seed=0)
+    before = sq.sq_sum_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3)
+        torch.cuda.synchronize()
+    assert sq.sq_sum_cuda.launches == before + 2
+    assert res.aux["cuda_graph"]["replays"] == 5
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "sq_sum_partial_kernel" in e.name]
+    assert len(kernels) == 6
+    np.testing.assert_allclose(res.history, [losses[2], losses[5]],
+                               rtol=1e-6)
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
 
 
 def _inner_solve(kind, A, b, iters):

@@ -1,7 +1,9 @@
 """The port's separable (SPINN) path against the JAX package, mirroring
 tests/test_separable.py: the factorized residual, grid and axis features,
 causal weighting, the dense-fallback route, gPINN rows and remat, the error
-cases, and Adam steps of the hard-constrained Poisson problem.
+cases, and Adam steps of the hard-constrained Poisson problem; and the
+factored route of a two-axis residual (its mean square and gradients
+against the grid route's and the JAX package's, each loss's route).
 
 Parameters are numpy draws in the JAX tree's layout, converted with
 `params_from_jax`; nodes are numpy arrays, or JAX's own draws fed through
@@ -9,6 +11,8 @@ Parameters are numpy draws in the JAX tree's layout, converted with
 after Adam steps, whose sqrt(v) + eps division amplifies rounding); float32
 1e-5 relative.
 """
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +32,11 @@ from neuralpde_tpu.compile.separable import build_separable_residual as j_sep
 from neuralpde_tpu.ops.derivatives import DerivativeEngine as JEngine
 from neuralpde_tpu.train import make_step as jax_make_step
 from neuralpde_tpu_torch.compile.lower import LoweringContext as TContext
+from neuralpde_tpu_torch.compile.separable import build_factored_residual as t_fac
 from neuralpde_tpu_torch.compile.separable import build_separable_residual as t_sep
+from neuralpde_tpu_torch.compile.separable import factored_msq
 from neuralpde_tpu_torch.ops.derivatives import DerivativeEngine as TEngine
+from neuralpde_tpu_torch.strategies import _msq
 
 F64 = torch.float64
 
@@ -107,6 +114,28 @@ def _case(name, pkg):
         Dx, Dy = pkg.Differential(x), pkg.Differential(y)
         eq = pkg.Eq(Dx(u(x, y)) + Dy(v(x, y)), u(x, y) * v(x, y))
         return eq, ("u", "v"), ("x", "y"), sep((8,), 4), (5, 5)
+    Dxx, Dyy = pkg.Differential(x) ** 2, pkg.Differential(y) ** 2
+    if name == "coefficient":
+        # a(x) u_xx + u_yy / b(y): axis values scale one side of a term
+        eq = pkg.Eq((1 + x * x) * Dxx(u(x, y))
+                    + Dyy(u(x, y)) / (2 + pkg.cos(np.pi * y)),
+                    -pkg.sin(np.pi * x) * pkg.sin(np.pi * y))
+        return eq, ("u",), ("x", "y"), sep((12, 12), 6), (9, 7)
+    if name == "source":
+        # a constant, axis-only terms and a product of two axis values
+        eq = pkg.Eq(Dxx(u(x, y)) + Dyy(u(x, y)) - 0.5 * u(x, y),
+                    3.0 + pkg.exp(x) - 2 * pkg.sin(np.pi * y) + x * y)
+        return eq, ("u",), ("x", "y"), sep((12, 12), 6), (8, 9)
+    if name == "face_terms":
+        # a face of a 3-D box, u(x, y, 0): a constant slot scales a side; a
+        # call along one grid axis, u(x, 0, 0), and a pinned one, u(0, 0, 0),
+        # are rank-1 terms
+        z = pkg.symbols("z")
+        Dz = pkg.Differential(z)
+        eq = pkg.Eq(u(x, y, 0.0) + 0.5 * Dz(u(x, y, 0.0))
+                    - 0.25 * u(x, 0.0, 0.0) + u(0.0, 0.0, 0.0),
+                    pkg.sin(np.pi * x) * pkg.sin(np.pi * y))
+        return eq, ("u",), ("x", "y", "z"), sep((8, 8), 6, 3), (7, 6)
     raise KeyError(name)
 
 
@@ -136,6 +165,118 @@ def test_factorized_residual_matches_jax(name):
         dense = tpkg.build_residual_function(
             teq, [tpkg.Sym(n) for n in inputs], tctx)(cord, ttheta)
         assert rel_err(dense.reshape(counts).detach().numpy(), want) < 1e-9
+
+
+FACTORED = ["interior", "transformed", "coefficient", "source", "face_terms"]
+
+
+def _value_and_grad(loss_fn, theta):
+    theta = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    loss = loss_fn(theta)
+    grads = torch.autograd.grad(loss, list(theta.values()))
+    return float(loss.detach()), dict(zip(theta, grads))
+
+
+@pytest.mark.parametrize("name", FACTORED)
+def test_factored_route_matches_grid_route_and_jax(name):
+    """The factored route's mean square and every parameter's gradient
+    against the grid route's (`_msq` of the grid residual) and the JAX
+    package's mean square of its grid residual."""
+    jeq, depvars, inputs, builder, counts = _case(name, jpkg)
+    teq = _case(name, tpkg)[0]
+    jn, tn = _nets(builder)
+    jctx, tctx = _contexts(jn, tn, depvars, inputs)
+    jtheta, ttheta = _thetas(jn, 20 + FACTORED.index(name))
+    jres, _ = j_sep(jeq, jctx, {"u": jn[0]}, jnp.float64)
+    tres, _ = t_sep(teq, tctx, {"u": tn[0]}, F64)
+    factors = t_fac(teq, tctx, {"u": tn[0]}, F64, ttheta)
+    nodes = [np.linspace(0.05, 0.95, n) for n in counts]
+    a, b, _ = factors(nodes, ttheta)
+    assert a.shape[0] % 4 == 0 and a.shape[0] == b.shape[0]
+    assert (a.shape[1], b.shape[1]) == counts
+    assert rel_err((a.T @ b).detach().numpy(),
+                   tres(nodes, ttheta).detach().numpy()) < 1e-10
+
+    def factored(th, all_rows=False):
+        a, b, rows = factors(nodes, th)
+        return factored_msq(a, b, None, a.shape[0] if all_rows else rows)
+
+    loss, grad = _value_and_grad(factored, ttheta)
+    # the backward's products over the rows that carry a gradient give what
+    # they give over all rows
+    all_loss, all_grad = _value_and_grad(
+        lambda th: factored(th, all_rows=True), ttheta)
+    assert loss == all_loss
+    _assert_grads(grad, all_grad, 1e-14)
+    gloss, ggrad = _value_and_grad(lambda th: _msq(tres(nodes, th)), ttheta)
+    jloss, jgrad = jax.jit(jax.value_and_grad(
+        lambda th: jnp.mean(jres(nodes, th) ** 2)))(jtheta)
+    assert rel_err(loss, gloss) < 1e-10
+    assert rel_err(loss, float(jloss)) < 1e-10
+    _assert_grads(grad, ggrad, 1e-10)
+    _assert_grads(grad, tpkg.params_from_jax(jax.tree.map(np.asarray, jgrad)),
+                  1e-10)
+
+
+def _case_problem(name):
+    """`_case`'s equation on the unit box, with no conditions, and its
+    nets."""
+    eq, depvars, inputs, builder, _ = _case(name, tpkg)
+    syms = tpkg.symbols(" ".join(inputs))
+    nets = [builder(tpkg, {"dtype": F64}) for _ in depvars]
+    system = tpkg.PDESystem(eq, [], [tpkg.Domain(s, tpkg.Interval(0, 1))
+                                     for s in syms], list(syms),
+                            [tpkg.DepVar(d)(*syms) for d in depvars])
+    return system, nets if len(nets) > 1 else nets[0]
+
+
+def face(pkg):
+    """3-D Laplace with a condition on a face (two grid axes) and on an
+    edge (one)."""
+    x, y, z = pkg.symbols("x y z")
+    u = pkg.DepVar("u")
+    Dxx, Dyy, Dzz = ((pkg.Differential(v) ** 2) for v in (x, y, z))
+    return pkg.PDESystem(
+        pkg.Eq(Dxx(u(x, y, z)) + Dyy(u(x, y, z)) + Dzz(u(x, y, z)), 0.0),
+        [pkg.Eq(u(x, y, 0.0), pkg.sin(np.pi * x) * pkg.sin(np.pi * y)),
+         pkg.Eq(u(x, 0.0, 0.0), 0.0)],
+        [pkg.Domain(v, pkg.Interval(0, 1)) for v in (x, y, z)], [x, y, z],
+        [u(x, y, z)])
+
+
+ROUTES = {"interior": ["factored"], "coefficient": ["factored"],
+          "face_terms": ["factored"],
+          "fourth_order": ["grid"], "multioutput": ["grid"], "3d": ["grid"],
+          "face": ["grid", "factored", "grid"],
+          "heat": ["factored", "grid", "grid", "grid"],
+          "causal": ["grid"] * 4, "gpinn": ["grid"] * 3,
+          "remat": ["grid"] * 3, "dense": ["factored", "grid", "dense"]}
+
+
+@pytest.mark.parametrize("kind", list(ROUTES))
+def test_routes_follow_the_expression(kind):
+    """Each loss's route: a two-axis residual of rank-factored terms (a
+    face of a 3-D box too) factors; products of depvar terms, three axes,
+    causal weighting, gPINN rows and remat keep the grid route; one-axis
+    conditions are grid losses, a coupled argument a dense one."""
+    strategy = tpkg.SeparableTraining(dx=1 / 8)
+    net, kw = _sep((8,), 4)(tpkg, {"dtype": F64}), {}
+    if kind in CASES + FACTORED:
+        system, net = _case_problem(kind)
+    elif kind == "face":
+        system, net = face(tpkg), tpkg.separable_mlp(3, (8,), 4, dtype=F64)
+    else:
+        system = {"heat": heat, "causal": heat, "gpinn": gpinn_system,
+                  "remat": gpinn_system, "dense": coupled}[kind](tpkg)
+        if kind == "causal":
+            strategy = tpkg.SeparableTraining(dx=1 / 8, causal="t")
+        kw = {"gpinn": {"gradient_enhanced": 0.3},
+              "remat": {"remat": True}}.get(kind, {})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)    # the dense route's
+        prob = tpkg.discretize(system, tpkg.PhysicsInformedNN(
+            net, strategy, dtype=F64, device="cpu", **kw))
+    assert prob.pinnrep.strategy.routes == ROUTES[kind]
 
 
 def test_grid_and_axis_features_match_jax():
