@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import string
 import warnings
+from contextvars import ContextVar
 from dataclasses import dataclass
 
 import torch
@@ -52,6 +53,7 @@ from ..symbolic.expr import (
     Sym, _simplify, expand_derivatives, symbolic_diff,
 )
 from ..symbolic.system import infimum, supremum
+from ..utils.profiling import PhaseTimer, spans_enabled
 from .lower import LoweringContext, _walk, get_argument
 from .transform_inf import transform_inf_integral
 
@@ -65,6 +67,9 @@ _FACTORIZATION_ERROR_MARKS = ("separable fast path",)
 # dense-fallback tensor grids beyond this size would materialize the full
 # N^d pointwise evaluation the factorized path exists to avoid
 _DENSE_FALLBACK_MAX_POINTS = 1 << 22
+
+# while `probe_residual` runs: ``[n]``, the grid contractions counted so far
+_contractions: ContextVar = ContextVar("grid_contractions", default=None)
 
 
 def _shard_nodes(nodes: list):
@@ -201,10 +206,15 @@ def _call_features(call: DepVarCall, orders: dict, env, theta, p,
 
 def _depvar_grid(call: DepVarCall, orders: dict, env, theta, p,
                  gctx: _GridContext):
-    """Grid tensor of a (derivative of a) depvar call (`_call_features`)."""
+    """Grid tensor of a (derivative of a) depvar call (`_call_features`);
+    a rank contraction that writes two or more grid axes is counted while
+    `probe_residual` runs."""
     by_axis, const = _call_features(call, orders, env, theta, p, gctx)
     if not by_axis:                              # fully pinned call, e.g. u(0, 0)
         return torch.sum(const)
+    counted = _contractions.get()
+    if counted is not None and len(by_axis) > 1:
+        counted[0] += 1
     terms, ops, out = [], [], ""
     if const is not None:
         terms.append("z")
@@ -556,14 +566,22 @@ def build_factored_residual(eq: Eq, ctx: LoweringContext, nets: dict, dtype,
     return factors
 
 
-def probe_residual(residual, n_axes: int, theta, dtype) -> None:
+def probe_residual(residual, n_axes: int, theta, dtype) -> int:
     """Evaluate ``residual`` once, without gradients, on a 2-node-per-axis
     grid on the parameters' device, so that factorization errors surface
-    when the loss is built rather than at the first step."""
+    when the loss is built rather than at the first step.  Returns the grid
+    contractions of the evaluation: `_depvar_grid`'s rank contractions that
+    write a tensor over two or more grid axes."""
     device = _theta_device(theta)
-    with torch.no_grad():
-        residual([torch.zeros((2,), dtype=dtype, device=device)
-                  for _ in range(n_axes)], theta)
+    counted = [0]
+    token = _contractions.set(counted)
+    try:
+        with torch.no_grad():
+            residual([torch.zeros((2,), dtype=dtype, device=device)
+                      for _ in range(n_axes)], theta)
+    finally:
+        _contractions.reset(token)
+    return counted[0]
 
 
 def _axis_spans(pinnrep) -> dict:
@@ -646,6 +664,8 @@ class SeparableTraining(TrainingStrategy):
         self.sampler = uniform_nodes
         self._weight_fns = []
         self.routes = []
+        self.grid_contractions = []
+        self.spans = None
 
     def build(self, pinnrep, datafree_pde, datafree_bc):
         dtype, device = pinnrep.dtype, pinnrep.device
@@ -735,7 +755,7 @@ class SeparableTraining(TrainingStrategy):
                     return torch.stack(rows)
 
                 stacked = True
-            probe_residual(residual, len(axes), theta0, dtype)
+            contractions = probe_residual(residual, len(axes), theta0, dtype)
             if remat:
                 plain = residual
 
@@ -787,14 +807,14 @@ class SeparableTraining(TrainingStrategy):
                     nodes, _ = _shard_nodes(nodes_of(generator, theta))
                     a, b, rows = factors(nodes, theta)
                     return share(factored_msq(a, b, acc, rows))
-                return loss, "factored"
+                return loss, "factored", 0
 
             if t_pos is None:
                 def loss(theta, generator, residual=residual,
                          nodes_of=nodes_of):
                     nodes, _ = _shard_nodes(nodes_of(generator, theta))
                     return share(_msq(residual(nodes, theta), acc))
-                return loss, "grid"
+                return loss, "grid", contractions
 
             lo, hi = spans[self.causal]
             n_t = (len(static_nodes[self.causal])
@@ -809,7 +829,8 @@ class SeparableTraining(TrainingStrategy):
 
             self._weight_fns.append(lambda theta, generator:
                                     weighted(theta, generator)[1])
-            return lambda theta, generator: weighted(theta, generator)[0], "grid"
+            return (lambda theta, generator: weighted(theta, generator)[0],
+                    "grid", contractions)
 
         def dense_fallback(df, args, eq, why):
             """Pointwise evaluation of one non-factorizable equation on the
@@ -855,22 +876,31 @@ class SeparableTraining(TrainingStrategy):
 
         def route(eq, df, args, allow_causal):
             try:
-                loss, how = make_loss(eq, allow_causal)
+                loss, how, contractions = make_loss(eq, allow_causal)
             except (ValueError, NotImplementedError) as e:
                 if not _is_factorization_error(e):
                     raise
-                loss, how = dense_fallback(df, args, eq, str(e)), "dense"
+                loss, how, contractions = (dense_fallback(df, args, eq, str(e)),
+                                           "dense", 0)
             self.routes.append(how)
+            self.grid_contractions.append(contractions)
             return loss
 
         self._weight_fns = []
         self.routes = []
+        self.grid_contractions = []
+        timer = PhaseTimer() if spans_enabled() else None
+        if timer is not None:
+            timer.open("separable.build")
         pde_losses = [route(eq, df, args, True)
                       for eq, df, args in zip(pinnrep.eqs, datafree_pde,
                                               pinnrep.pde_args)]
         bc_losses = [route(bc, df, args, False)
                      for bc, df, args in zip(pinnrep.bcs, datafree_bc,
                                              pinnrep.bc_args)]
+        if timer is not None:
+            timer.close()
+        self.spans = None if timer is None else timer.summary()
         return pde_losses, bc_losses
 
     def _rad_nodes(self, bounds, t_axis, residual, offset):
