@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..nn.core import TrialFunction
-from ..ops.derivatives import DerivativeEngine
+from ..ops.derivatives import DerivativeEngine, JetPasses
 from ..ops.quadrature import adaptive_quad_1d, adaptive_quad_nd, rule_tensors
 from ..symbolic.expr import (
     PRIMITIVES, Call, DepVarCall, Deriv, Eq, Expr, IntegralExpr, Num, Param,
@@ -85,21 +85,25 @@ class LoweringContext:
 # Equation analysis (get_argument / get_variables analogs)
 # ---------------------------------------------------------------------------
 
-def _walk(expr: Expr):
+def _walk(expr: Expr, integrands: bool = True):
+    """Every node of ``expr``; with ``integrands=False``, only those that
+    one evaluation environment evaluates (an integrand is evaluated at its
+    own nodes, its bounds are not)."""
     yield expr
     if isinstance(expr, Call):
         for a in expr.args:
-            yield from _walk(a)
+            yield from _walk(a, integrands)
     elif isinstance(expr, Deriv):
-        yield from _walk(expr.target)
+        yield from _walk(expr.target, integrands)
     elif isinstance(expr, DepVarCall):
         for a in expr.args:
-            yield from _walk(a)
+            yield from _walk(a, integrands)
     elif isinstance(expr, IntegralExpr):
-        yield from _walk(expr.integrand)
+        if integrands:
+            yield from _walk(expr.integrand)
         for b in expr.lb + expr.ub:
             if isinstance(b, Expr):
-                yield from _walk(b)
+                yield from _walk(b, integrands)
 
 
 def _eq_expr(eq: Eq) -> Expr:
@@ -152,6 +156,32 @@ def get_integration_variables(eq: Eq) -> list:
     return out
 
 
+def jet_groups(expr: Expr, ctx: LoweringContext) -> dict:
+    """``{(call, order): input slots}``: for each dependent-variable call
+    of ``expr`` (``repr`` of the call: the same name at the same
+    arguments, so one network input) and each order >= 2, the slots of its
+    pure partials of that order, in order of first appearance.  One Taylor
+    pass takes each group (`JetPasses`).  Integrands are left out: they
+    are evaluated at their own nodes, one partial a pass.  Empty unless
+    the engine's mode is "jet", the only one that takes Taylor passes."""
+    groups: dict = {}
+    if ctx.derivative.mode != "jet":
+        return groups
+    for node in _walk(expr, integrands=False):
+        if not (isinstance(node, Deriv) and isinstance(node.target,
+                                                       DepVarCall)):
+            continue
+        inputs = ctx.dict_depvar_input[node.target.name]
+        name = node.wrt[0].name
+        if (node.order < 2 or name not in inputs
+                or any(w.name != name for w in node.wrt)):
+            continue
+        slots = groups.setdefault((repr(node.target), node.order), [])
+        if inputs.index(name) not in slots:
+            slots.append(inputs.index(name))
+    return {k: tuple(v) for k, v in groups.items()}
+
+
 def free_symbols(eq: Eq) -> list:
     """The equation's Syms, in order of first appearance."""
     out = []
@@ -176,7 +206,11 @@ def _first_tensor(params: dict, env: dict) -> torch.Tensor:
     raise ValueError("no parameter or collocation row to take a device from")
 
 
-def _ev(expr: Expr, env: dict, theta, p, ctx: LoweringContext, N: int):
+def _ev(expr: Expr, env: dict, theta, p, ctx: LoweringContext, N: int,
+        jets: JetPasses | None = None):
+    """The value of ``expr`` at the collocation rows ``env``; ``jets``
+    holds the evaluation's shared Taylor passes (None: one pass a
+    partial)."""
     if isinstance(expr, Num):
         return expr.value
     if isinstance(expr, Sym):
@@ -195,20 +229,20 @@ def _ev(expr: Expr, env: dict, theta, p, ctx: LoweringContext, N: int):
             raise ValueError(f"parameter {expr.name!r} has no default value")
         return p[idx]
     if isinstance(expr, Call):
-        vals = [_ev(a, env, theta, p, ctx, N) for a in expr.args]
+        vals = [_ev(a, env, theta, p, ctx, N, jets) for a in expr.args]
         return PRIMITIVES[expr.op](*vals)
     if isinstance(expr, DepVarCall):
         theta_u = ctx.theta_for(expr.name, theta)
-        cord_u = _depvar_cord(expr, env, theta, p, ctx, N)
+        cord_u = _depvar_cord(expr, env, theta, p, ctx, N, jets)
         return TrialFunction(ctx.module_for(expr.name), theta_u)(cord_u)[0]
     if isinstance(expr, Deriv):
-        return _ev_deriv(expr, env, theta, p, ctx, N)
+        return _ev_deriv(expr, env, theta, p, ctx, N, jets)
     if isinstance(expr, IntegralExpr):
-        return _ev_integral(expr, env, theta, p, ctx, N)
+        return _ev_integral(expr, env, theta, p, ctx, N, jets)
     raise TypeError(f"cannot lower {type(expr).__name__}")
 
 
-def _depvar_cord(call: DepVarCall, env, theta, p, ctx, N):
+def _depvar_cord(call: DepVarCall, env, theta, p, ctx, N, jets=None):
     """Network-input matrix (dim_u, N) from call args in canonical order
     (the `cordᵢ = vcat(...)` header, reference: src/discretize.jl:111-115).
     Rows take the parameters' dtype and device (EltypeAdaptor semantics,
@@ -221,7 +255,7 @@ def _depvar_cord(call: DepVarCall, env, theta, p, ctx, N):
     like = _first_tensor(ctx.theta_for(call.name, theta), env)
     rows = []
     for a in call.args:
-        v = _ev(a, env, theta, p, ctx, N)
+        v = _ev(a, env, theta, p, ctx, N, jets)
         if isinstance(v, torch.Tensor):
             v = torch.broadcast_to(v, (N,))
             if v.is_floating_point():
@@ -232,7 +266,7 @@ def _depvar_cord(call: DepVarCall, env, theta, p, ctx, N):
     return torch.stack(rows, dim=0)
 
 
-def _ev_deriv(expr: Deriv, env, theta, p, ctx, N):
+def _ev_deriv(expr: Deriv, env, theta, p, ctx, N, jets=None):
     target = expr.target
     if not isinstance(target, DepVarCall):
         raise ValueError(
@@ -252,8 +286,15 @@ def _ev_deriv(expr: Deriv, env, theta, p, ctx, N):
     # position may be a constant (Neumann BC `Dx(u(0, y))`) or any expression —
     # the stencil/jvp shifts the evaluated row (reference semantics: the FD
     # engine shifts the bound cord row, src/pinn_types.jl:421-458).
-    cord_u = _depvar_cord(target, env, theta, p, ctx, N)
     u_fn = TrialFunction(ctx.module_for(target.name), theta_u)
+    if jets is not None:
+        shared = jets.partial(
+            repr(target), u_fn,
+            lambda: _depvar_cord(target, env, theta, p, ctx, N, jets),
+            var_indices)
+        if shared is not None:
+            return shared[0]
+    cord_u = _depvar_cord(target, env, theta, p, ctx, N, jets)
     return ctx.derivative(u_fn, cord_u, var_indices, len(inputs))[0]
 
 
@@ -290,20 +331,22 @@ def _spread(env: dict, n: int, q: int) -> dict:
             for k, v in env.items()}
 
 
-def _ev_integral(expr: IntegralExpr, env, theta, p, ctx, N):
+def _ev_integral(expr: IntegralExpr, env, theta, p, ctx, N, jets=None):
     """Integral terms -> batched static-shape Gauss-Legendre quadrature.
 
     The reference solves one adaptive IntegralProblem per collocation column
     in a host loop (src/discretize.jl:387-394); here the integrand of every
     column is evaluated at all its nodes in one batch of ``N * Q`` columns.
+    The bounds take the evaluation's shared passes ``jets``; the integrand,
+    at its own nodes, takes one pass a partial.
     """
     expr = transform_inf_integral(expr)
     ndims = len(expr.ivars)
     like = _like(env, theta)
 
     def bound(b):
-        return _row(_ev(b, env, theta, p, ctx, N) if isinstance(b, Expr)
-                    else b, N, like)
+        return _row(_ev(b, env, theta, p, ctx, N, jets)
+                    if isinstance(b, Expr) else b, N, like)
 
     if ndims == 1:
         nu, wu = rule_tensors(1, ctx.integral_order, ctx.integral_panels,
@@ -327,7 +370,7 @@ def _ev_integral(expr: IntegralExpr, env, theta, p, ctx, N):
         inner = IntegralExpr(expr.integrand, expr.ivars[1:],
                              expr.lb[1:], expr.ub[1:])
         outer = IntegralExpr(inner, expr.ivars[:1], expr.lb[:1], expr.ub[:1])
-        return _ev_integral(outer, env, theta, p, ctx, N)
+        return _ev_integral(outer, env, theta, p, ctx, N, jets)
 
     # n-D, static numeric bounds: tensor rule on the unit cube
     lbs = [b.value if isinstance(b, Num) else float(b) for b in expr.lb]
@@ -428,15 +471,19 @@ def build_residual_function(eq: Eq, row_layout: Sequence, ctx: LoweringContext,
     constant rows kept only for train-set shape parity with the reference).
     ``default_p`` is closed over for non-estimated parameters
     (reference: src/discretize.jl:172 binds default_p the same way).
+    Each evaluation takes the pure partials of one order of one call from
+    one Taylor pass (`jet_groups`, collected here; `JetPasses`).
     """
     expr = Call("-", (expand_derivatives(eq.lhs), expand_derivatives(eq.rhs)))
     sym_rows = [(i, s) for i, s in enumerate(row_layout) if isinstance(s, Sym)]
     p_vals = _p_values(default_p)
+    groups = jet_groups(expr, ctx)
 
     def residual(cord, theta):
         N = cord.shape[1]
         env = {s.name: cord[i] for i, s in sym_rows}
-        out = _ev(expr, env, theta, p_vals, ctx, N)
+        out = _ev(expr, env, theta, p_vals, ctx, N,
+                  JetPasses(ctx.derivative, groups) if groups else None)
         if not isinstance(out, torch.Tensor):
             return torch.full((N,), float(out), dtype=cord.dtype,
                               device=cord.device)

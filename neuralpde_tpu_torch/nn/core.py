@@ -19,6 +19,13 @@ sin/cos, and the wrappers around user functions (`Transformed`,
 `SkipConnection`) push the inner series through the user's function by
 truncated-Taylor arithmetic (`_Series`).
 
+``forward(x, Directions(...))`` carries one series per direction over one
+primal, for modules with `has_directions_rule`: a Dense layer makes its
+primal product once and one product per series tensor of each direction,
+and each activation's rule takes the one pre-activation with each
+direction's series.  A derivative engine takes the pure partials of one
+call along several coordinates from one such pass.
+
 `Transformed` and `SkipConnection` add no level to parameter names, as
 their JAX counterparts return ``base.init(key)``: they share the wrapped
 module's registries (see `_Wrapper`).
@@ -202,6 +209,32 @@ def _gelu_series(z, zs):
     return gelu(z), _denormalise(a)
 
 
+class Directions(tuple):
+    """Taylor series along several directions over one primal: one series
+    (a tuple of tensors, derivative convention) per direction.  A module
+    with `has_directions_rule` takes it in place of a single series in
+    ``forward(x, series)`` and returns its output's series as `Directions`
+    in the same order."""
+
+
+def _map_series(series, fn):
+    """``fn`` on every tensor of one series (a tuple) or of `Directions`."""
+    if isinstance(series, Directions):
+        return Directions(tuple(fn(s) for s in d) for d in series)
+    return tuple(fn(s) for s in series)
+
+
+def _per_direction(series, one):
+    """``one(series) -> (primal, series)`` on one series, or on each
+    direction's series of `Directions`: the first direction's primal is
+    the result's (every direction computes the same one)."""
+    if not isinstance(series, Directions):
+        primal, out = one(series)
+        return primal, tuple(out)
+    outs = [one(d) for d in series]
+    return outs[0][0], Directions(tuple(s) for _, s in outs)
+
+
 TAYLOR_RULES: dict[Callable, Callable] = {
     tanh: _tanh_series,
     sigmoid: _sigmoid_series,
@@ -232,6 +265,11 @@ class Module(nn.Module):
 
     @property
     def has_taylor_rule(self) -> bool:
+        return False
+
+    @property
+    def has_directions_rule(self) -> bool:
+        """Whether ``forward(x, series)`` also takes `Directions`."""
         return False
 
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -281,6 +319,10 @@ class Dense(Module):
     def has_taylor_rule(self):
         return self.activation in TAYLOR_RULES
 
+    @property
+    def has_directions_rule(self):
+        return self.has_taylor_rule
+
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         w = self.weight
@@ -307,14 +349,16 @@ class Dense(Module):
     def forward(self, x, series: Sequence[torch.Tensor] | None = None):
         if self.column_parallel or self.row_parallel:
             z, zs = self._tensor_parallel(x, series)
+            products = list
         else:
-            z = self._affine(x)
-            zs = None if series is None else [self.weight @ xk
-                                              for xk in series]
+            z, zs = self._affine(x), series
+            products = lambda d: [self.weight @ xk for xk in d]  # noqa: E731
         if series is None:
             return self.activation(z)
-        a, a_series = TAYLOR_RULES[self.activation](z, zs)
-        return a, tuple(a_series)
+        rule = TAYLOR_RULES[self.activation]
+        # a direction's products are made just before its rule reads them,
+        # while they are still in the card's L2 cache
+        return _per_direction(zs, lambda d: rule(z, products(d)))
 
     def _tensor_parallel(self, x, series):
         """The affine map and its series on tensor-parallel parameters
@@ -330,16 +374,23 @@ class Dense(Module):
                 f"Dense({self._in}, {self._out}) got a weight of shape "
                 f"{tuple(self.weight.shape)}: tensor-parallel parameters "
                 "need an active mesh with a model axis")
-        ins = [x] + list(series or ())
+        directions = isinstance(series, Directions)
+        ins = [x] + ([s for d in series for s in d] if directions
+                     else list(series or ()))
         if self.column_parallel:
             ins = [CopyToModel.apply(v, group) if v.requires_grad else v
                    for v in ins]
             z = self._affine(ins[0])
-            return z, [self.weight @ v for v in ins[1:]]
-        parts = ReduceFromModel.apply(
-            torch.stack([self.weight @ v for v in ins]), group)
-        z = parts[0] if self.bias is None else parts[0] + self.bias
-        return z, list(parts[1:])
+            outs = [self.weight @ v for v in ins[1:]]
+        else:
+            parts = ReduceFromModel.apply(
+                torch.stack([self.weight @ v for v in ins]), group)
+            z = parts[0] if self.bias is None else parts[0] + self.bias
+            outs = list(parts[1:])
+        if directions:
+            it = iter(outs)
+            return z, Directions(tuple(next(it) for _ in d) for d in series)
+        return z, outs
 
 
 class Chain(Module):
@@ -366,6 +417,11 @@ class Chain(Module):
     def has_taylor_rule(self):
         return all(getattr(l, "has_taylor_rule", False) for l in self.layers)
 
+    @property
+    def has_directions_rule(self):
+        return all(getattr(l, "has_directions_rule", False)
+                   for l in self.layers)
+
     def reset_parameters(self, generator=None):
         for layer in self.layers:
             layer.reset_parameters(generator)
@@ -382,8 +438,8 @@ class Chain(Module):
                 # a column-parallel output that no row-parallel layer takes
                 x = GatherFromModel.apply(x, group)
                 if series is not None:
-                    series = tuple(GatherFromModel.apply(v, group)
-                                   for v in series)
+                    series = _map_series(
+                        series, lambda v: GatherFromModel.apply(v, group))
         return x if series is None else (x, series)
 
 
@@ -558,7 +614,12 @@ class _Series:
 
 
 def _through(fn, *inputs):
-    """Taylor series of ``fn`` at series ``inputs`` (primal, series)."""
+    """Taylor series of ``fn`` at series ``inputs`` (primal, series); with
+    `Directions`, each direction's series through ``fn`` in turn."""
+    if isinstance(inputs[0][1], Directions):
+        outs = [_through(fn, *((p, s[i]) for p, s in inputs))
+                for i in range(len(inputs[0][1]))]
+        return outs[0][0], Directions(s for _, s in outs)
     out = fn(*(_Series.of(p, s) for p, s in inputs))
     if isinstance(out, _Series):
         return out.result()
@@ -590,6 +651,10 @@ class _Wrapper(Module):
     @property
     def has_taylor_rule(self):
         return getattr(self._inner, "has_taylor_rule", False)
+
+    @property
+    def has_directions_rule(self):
+        return getattr(self._inner, "has_directions_rule", False)
 
     def reset_parameters(self, generator=None):
         self._inner.reset_parameters(generator)
@@ -673,16 +738,24 @@ class FourierFeatures(Module):
         b.copy_(self.sigma * torch.randn(tuple(b.shape), generator=generator,
                                          dtype=b.dtype, device=b.device))
 
+    @property
+    def has_directions_rule(self):
+        return True
+
     def forward(self, x, series=None):
         b = self.B.detach()
         proj = 2.0 * math.pi * (b @ x)
         if series is None:
             return torch.cat([torch.sin(proj), torch.cos(proj)], dim=0)
-        s, s_series, c, c_series = _sin_cos_series(
-            proj, [2.0 * math.pi * (b @ xk) for xk in series])
-        return (torch.cat([s, c], dim=0),
-                tuple(torch.cat([a, b], dim=0)
-                      for a, b in zip(s_series, c_series)))
+
+        def one(d):
+            s, s_series, c, c_series = _sin_cos_series(
+                proj, [2.0 * math.pi * (b @ xk) for xk in d])
+            return (torch.cat([s, c], dim=0),
+                    tuple(torch.cat([a, b], dim=0)
+                          for a, b in zip(s_series, c_series)))
+
+        return _per_direction(series, one)
 
 
 class PeriodicEmbedding(Module):
@@ -720,16 +793,24 @@ class PeriodicEmbedding(Module):
     def _rest(self, x):
         return [x[i:i + 1] for i in range(self._in) if i != self.axis]
 
+    @property
+    def has_directions_rule(self):
+        return True
+
     def forward(self, x, series=None):
         ang = self._angles(x)
         if series is None:
             return torch.cat(self._rest(x) + [torch.sin(ang), torch.cos(ang)],
                              dim=0)
-        s, s_series, c, c_series = _sin_cos_series(
-            ang, [self._angles(xk) for xk in series])
-        return (torch.cat(self._rest(x) + [s, c], dim=0),
-                tuple(torch.cat(self._rest(xk) + [a, b], dim=0)
-                      for xk, a, b in zip(series, s_series, c_series)))
+
+        def one(d):
+            s, s_series, c, c_series = _sin_cos_series(
+                ang, [self._angles(xk) for xk in d])
+            return (torch.cat(self._rest(x) + [s, c], dim=0),
+                    tuple(torch.cat(self._rest(xk) + [a, b], dim=0)
+                          for xk, a, b in zip(d, s_series, c_series)))
+
+        return _per_direction(series, one)
 
 
 class TrialFunction:
@@ -746,9 +827,22 @@ class TrialFunction:
     def has_taylor_rule(self) -> bool:
         return getattr(self.module, "has_taylor_rule", False)
 
+    @property
+    def has_directions_rule(self) -> bool:
+        return getattr(self.module, "has_directions_rule", False)
+
     def __call__(self, x):
         return functional_call(self.module, self.params, (x,), strict=True)
 
     def taylor(self, x, series):
         return functional_call(self.module, self.params, (x, tuple(series)),
                                strict=True)
+
+    def taylor_directions(self, x, directions):
+        """``(primal, [output series of each direction])`` from one pass:
+        ``directions`` holds one input series per direction (`Directions`),
+        and the module computes the primal once."""
+        primal, out = functional_call(
+            self.module, self.params,
+            (x, Directions(tuple(d) for d in directions)), strict=True)
+        return primal, list(out)

@@ -199,18 +199,19 @@ def test_spinn_builder_matches_jax():
 
 def _gemm_flops(sizes, batch):
     """GEMM FLOPs (2 m n k a product) of one jet step of bench's dense
-    Poisson problem on ``mlp(sizes)``: two Taylor passes (u_xx, u_yy) of
-    the primal and two coefficients through every layer at ``batch``
-    points; in the backward each product's weight gradient and, past the
-    first layer, its input gradient, where at the last layer only the
-    second coefficient reaches the loss; four boundary conditions of
+    Poisson problem on ``mlp(sizes)``: one Taylor pass for u_xx and u_yy,
+    the primal and each direction's two coefficients (five products)
+    through every layer at ``batch`` points; in the backward each
+    product's weight gradient and, past the first layer, its input
+    gradient, where at the last layer only each direction's second
+    coefficient reaches the loss; four boundary conditions of
     ``batch // 8`` points, a plain forward and its backward."""
     def layers(n):
         return [2 * i * o * n for i, o in zip(sizes[:-1], sizes[1:])]
 
     first, *mid, last = layers(batch)
-    pde = 2 * (3 * (first + sum(mid) + last)
-               + 3 * first + 3 * 2 * sum(mid) + 2 * last)
+    pde = (5 * (first + sum(mid) + last)
+           + 5 * first + 5 * 2 * sum(mid) + 2 * 2 * last)
     first, *mid, last = layers(batch // 8)
     bcs = 4 * ((first + sum(mid) + last) + first + 2 * sum(mid) + 2 * last)
     return pde + bcs

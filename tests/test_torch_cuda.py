@@ -7,7 +7,7 @@ kernel against its plain version, and `npde.lbfgs()` captured (against the
 CPU, with no host read in a block, restored from a checkpoint); one rate of
 `bench_torch.py` and its matmul-ceiling probe; the `sq_sum` kernel against
 its plain version and the SPINN Poisson's captured solve on the factored
-route.
+route; a captured dense step whose Laplacian takes one Taylor pass.
 Graph against eager steps: rtol 1e-6 (the same kernels on the same inputs).
 
 These tests need a CUDA device and skip without one.  The file imports no
@@ -328,6 +328,35 @@ def test_solve_replays_a_captured_step_equal_to_eager_steps(cuda):
                                rtol=1e-6)
     for k, v in theta.items():
         torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_captured_step_with_the_shared_pass_launches_one_shape_a_kind(cuda):
+    """The Poisson residual takes u_xx and u_yy from one Taylor pass (the
+    engine counts two terms a pass) in a captured step: replays equal the
+    eager steps, and each `tanh_jet2` kernel ran at one shape, the
+    microbatch's, as `tanh_jet2_roofline.train` reads it."""
+    import neuralpde_tpu_torch as npde
+
+    prob = _dense_problem(cuda, npde.StochasticTraining(
+        256, bcs_points=32, microbatch=64))
+    engine = prob.pinnrep.derivative
+    losses, theta, _ = _eager(prob, 6, seed=5)
+    assert engine.jet_passes > 0
+    assert engine.jet_terms == 2 * engine.jet_passes
+    tj.LAUNCH_SHAPES.clear()
+    res = npde.solve(prob, npde.adam(1e-3), maxiters=6, inner_steps=3,
+                     generator=torch.Generator(device=cuda).manual_seed(5))
+    assert res.aux["cuda_graph"]["replays"] == 5
+    np.testing.assert_allclose(res.history, [losses[2], losses[5]],
+                               rtol=1e-6)
+    for k, v in theta.items():
+        torch.testing.assert_close(res.u[k], v, rtol=1e-6, atol=1e-7)
+    shapes = {}
+    for kind, shape in tj.LAUNCH_SHAPES:
+        shapes.setdefault(kind, set()).add(shape)
+    assert shapes == {"tanh_jet2_forward": {(8, 64)},
+                      "tanh_jet2_backward": {(8, 64)}}
 
 
 def test_replayed_launches_are_counted_apart_from_the_wrappers():
